@@ -1,0 +1,64 @@
+"""Core library of the port: the paper's GAP safe screening for the SGL."""
+from .precision import ensure_x64
+
+# Certificates are only certificates in f64 — set the posture before any
+# submodule can build a tensor (see repro_torch.core.precision).
+ensure_x64()
+
+from .epsilon_norm import (  # noqa: E402
+    epsilon_decomposition,
+    epsilon_norm,
+    epsilon_norm_dual,
+    lam,
+    lam_bisect,
+)
+from .sgl import (  # noqa: E402
+    SGLProblem,
+    dual,
+    dual_scale,
+    duality_gap,
+    flatten,
+    group_soft_threshold,
+    lambda_max,
+    make_problem,
+    primal,
+    problem_from_grouped,
+    sgl_dual_norm,
+    sgl_dual_norm_terms,
+    sgl_norm,
+    sgl_prox,
+    soft_threshold,
+    unflatten,
+)
+from .screening import (  # noqa: E402
+    ScreenResult,
+    Sphere,
+    gap_sphere,
+    screened_dual_bound,
+    screened_group_rate,
+    sequential_sphere,
+)
+from .solver import (  # noqa: E402
+    RoundResult,
+    SolveCaches,
+    SolveResult,
+    bcd_epochs,
+    resolve_backend,
+    screen_round,
+)
+from .session import PathResult, SGLSession, SolverConfig, lambda_grid  # noqa: E402
+
+__all__ = [
+    "ensure_x64",
+    "SGLProblem", "make_problem", "problem_from_grouped",
+    "SGLSession", "SolverConfig", "PathResult", "lambda_grid",
+    "lambda_max", "dual_scale", "duality_gap", "primal", "dual",
+    "sgl_norm", "sgl_dual_norm", "sgl_dual_norm_terms", "sgl_prox",
+    "soft_threshold", "group_soft_threshold", "flatten", "unflatten",
+    "epsilon_norm", "epsilon_norm_dual", "epsilon_decomposition", "lam",
+    "lam_bisect",
+    "Sphere", "ScreenResult", "gap_sphere", "sequential_sphere",
+    "screened_dual_bound", "screened_group_rate",
+    "SolveResult", "SolveCaches", "RoundResult", "bcd_epochs",
+    "resolve_backend", "screen_round",
+]
