@@ -5,16 +5,25 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the three hand-written CUDA kernels from ``src/repro_torch/kernels/
+It builds the five hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc`` (into ``build/torch_kernels/``), holds each kernel against its plain
-PyTorch version on the card at the main path's shapes, drives the main path
-— ``SGLSession(problem, SolverConfig(...)).solve_path(...)`` on the paper's
-climate configuration at full width (n = 814, p = 73,584, G = 10,512 groups
-of 7) and on the paper's synthetic configuration (n = 100, p = 10,000) —
-with every launch count set to 0 just before each path and read just after,
-then reruns the leading lambdas of each path with the plain PyTorch backends
-on the card and requires equal certified masks.  Any failure raises, so the
-exit code is non-zero.  It imports nothing of JAX or of the JAX package.
+PyTorch version on the card at its paths' shapes, and drives the paths
+through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
+
+* the least-squares GAP path on the paper's climate configuration at full
+  width (n = 814, p = 73,584, G = 10,512 groups of 7) and on the paper's
+  synthetic configuration (n = 100, p = 10,000);
+* the logistic GAP path on the climate configuration at full width, its
+  response binarized at the median;
+* the paper's rule family (static, dynamic, DST3 and the unsafe strong rule)
+  on the synthetic configuration.
+
+Every launch count is set to 0 just before each path and read just after;
+the leading lambdas of each path are solved again with the plain PyTorch
+backends on the card and must certify equal masks, and what a safe rule
+screens must be zero in a tight-tol GAP solution.  Any failure raises, so
+the exit code is non-zero.  It imports nothing of JAX or of the JAX
+package.
 
 The next-to-last line of standard output is the kernels' JSON record; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -29,6 +38,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f64 rate on the CUDA
 # cores (the kernels do not use the f64 tensor cores).
@@ -36,13 +46,29 @@ HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
 U = 2.0 ** -53            # unit roundoff of f64
 
-# Main path configurations.  ``solve``: how many leading points of the
-# T-point grid the path solves; ``plain``: how many of those are solved again
-# with the plain PyTorch backends on the card (PERF.md says why each is cut).
+# Path configurations.  ``solve``: how many leading points of the T-point
+# grid the path solves; ``plain``: how many of those are solved again with
+# the plain PyTorch backends on the card; ``kernels``: the kernels the path
+# must launch, ``idle``: those it must not (PERF.md says why each is cut).
+LSQ_KERNELS = ("corr", "dual_norm", "bcd_epoch")
 CLIMATE = dict(name="climate", tau=0.4, tol=1e-6, T=20, delta=2.5,
-               solve=20, plain=8)
+               solve=20, plain=8, kernels=LSQ_KERNELS,
+               idle=("bcd_epoch_logistic", "screening_scores"))
+CLIMATE_LOGISTIC = dict(name="climate-logistic", loss="logistic", tau=0.4,
+                        tol=1e-6, T=20, delta=2.5, solve=14, plain=3,
+                        kernels=("corr", "dual_norm", "bcd_epoch_logistic"),
+                        idle=("bcd_epoch", "screening_scores"))
 SYNTHETIC = dict(name="synthetic", tau=0.2, tol=1e-8, T=40, delta=3.0,
-                 solve=28, plain=12)
+                 solve=28, plain=12, kernels=LSQ_KERNELS,
+                 idle=("bcd_epoch_logistic", "screening_scores"))
+# The rule family on the synthetic problem: each safe rule's path is held
+# against its plain-backend path on the same points and against the GAP
+# path at SAFETY_TOL; the strong rule must report unsafe certificates.
+SYNTHETIC_RULES = dict(name="synthetic-rules", tau=0.2, tol=1e-8, T=40,
+                       delta=3.0, solve=8, plain=8,
+                       rules=("static", "dynamic", "dst3"))
+SAFETY_TOL = 1e-10
+LEAK = 1e-8               # |beta| a screened variable may have at SAFETY_TOL
 # A Theorem-1 test whose value lies this close (relative) to its threshold
 # may flip between two summation orders (e.g. at lambda_max, where the
 # equicorrelated group's test sits exactly on its threshold).
@@ -75,13 +101,108 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(climate_problem, lam_max: float):
+def check_scores(label, Xt, center, tau, reps: int = 20):
+    """screening_scores against its plain version on ``Xt (p, n)`` and the
+    static sphere's ``center``; returns (max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.screening_scores import screening_scores_cuda
+
+    p, n = Xt.shape
+    got_c, got_s = screening_scores_cuda(Xt, center, tau)
+    want_c, want_s = ref.screening_scores_ref(Xt, center, tau)
+    # corr: corr's elementwise bound b; st2 = s^2 with s = max(|corr| - tau,
+    # 0): |s_k - s_p| <= b + 2 u s, so the squares differ by at most
+    # 2 |corr| b + b^2 plus the roundings of the subtraction and the square.
+    b_el = 2 * n * U * ref.corr_ref(Xt.abs(), center.abs())
+    err_c = (got_c - want_c).abs()
+    err_s = (got_s - want_s).abs()
+    tol_s = 2 * want_c.abs() * b_el + b_el * b_el + 6 * U * want_s + U
+    ok = bool((err_c <= b_el).all() and (err_s <= tol_s).all())
+    ms = cuda_ms(lambda: screening_scores_cuda(Xt, center, tau), reps)
+    plain = cuda_ms(lambda: ref.screening_scores_ref(Xt, center, tau), reps)
+
+    def library():
+        c = torch.mv(Xt, center)
+        s = (c.abs() - tau).clamp(min=0.0)
+        return c, s * s
+
+    lib = cuda_ms(library, reps)
+    b_ms, b_by = bound_ms(8.0 * (p * n + n + 2 * p), 2.0 * p * n + 3.0 * p)
+    log(f"kernel screening_scores ({label}): shape Xt ({p}, {n}) tau={tau} "
+        f"max_abs_err corr={float(err_c.max()):.3e} st2={float(err_s.max()):.3e}"
+        f" tol corr=2*n*u*(|Xt|@|theta|) st2=2|corr|b+b^2+6u*st2+u ok={ok} "
+        f"screened={int((want_s == 0).sum())} ms={ms:.4f} plain_ms={plain:.4f}"
+        f" torch.mv+clamp/square_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    if not ok:
+        raise AssertionError(f"screening_scores kernel disagrees with its "
+                             f"plain version ({label})")
+    return float(max(err_c.max(), err_s.max())), ms, plain, lib, b_ms, b_by
+
+
+def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
+              reps: int):
+    """One BCD epoch kernel (``loss`` "lsq": residual carry, "logistic":
+    predictor carry with labels ``y``) against its plain version; returns
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec
+
+    name = "bcd_epoch" if loss == "lsq" else "bcd_epoch_logistic"
+    Gb, n, ng = Xg.shape
+    B = beta.shape[0]
+
+    def kernel():
+        return bcd_epoch_cuda(Xg, Lg, w, fmask, lam_b, tau, beta, carry, E,
+                              loss=loss, y=y)
+
+    def plain():
+        if loss == "lsq":
+            return ref.bcd_epochs_ref(Xg, Lg, w, fmask, beta, carry, tau,
+                                      lam_b, E)
+        return ref.bcd_epochs_logistic_ref(Xg, Lg, w, fmask, beta, carry, y,
+                                           tau, lam_b, E)
+
+    kb, kc = kernel()
+    rb, rc = plain()
+    # E epochs of a nonexpansive prox-gradient map: the reductions' roundoff
+    # (~n u relative) does not grow beyond a small factor, so the stated
+    # tolerance is 1e-10 relative to the largest entry.
+    err_b = float((kb - rb).abs().max())
+    err_c = float((kc - rc).abs().max())
+    ok = (err_b <= 1e-10 * float(rb.abs().max().clamp(min=1e-300))
+          and err_c <= 1e-10 * float(rc.abs().max().clamp(min=1e-300)))
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, 1)
+    # Work this input needs at least: the B * E * (live groups) gradient
+    # reductions (2 n ng flops each); bytes: each input read once, each
+    # output written once.
+    live = int((Lg > 0).sum())
+    nbytes = 8.0 * (Gb * n * ng + 2 * Gb + 2 * B * Gb * ng + B + 2 * B * n
+                    + B * Gb * ng + (n if y is not None else 0))
+    b_ms, b_by = bound_ms(nbytes, 2.0 * B * E * live * n * ng)
+    in_smem = bcd_epoch_launch_spec(B, Gb, n, ng, loss)[1]
+    log(f"kernel {name} ({label}): B={B} Gb={Gb} live={live} n={n} ng={ng} "
+        f"E={E} beta_in_smem={int(in_smem)} max_abs_err beta={err_b:.3e} "
+        f"carry={err_c:.3e} tol=1e-10 relative ok={ok} "
+        f"nonzero={int((rb != 0).sum())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees with its plain "
+                             f"version ({label})")
+    return max(err_b, err_c), ms, plain_ms, b_ms, b_by
+
+
+def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     """Each kernel against its plain version on the card, at the shapes the
-    climate path gives it; returns one record per kernel (launches later)."""
+    climate paths give it (``y01``: the binarized response of the logistic
+    path); returns one record per kernel (launches later)."""
+    import numpy as np
     import torch
     from repro_torch.core import sgl
+    from repro_torch.core.solver import _gather_static
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.bcd_epoch import bcd_epoch_cuda
     from repro_torch.kernels.dual_norm import dual_norm_cuda
     from repro_torch.kernels.screening_scores import screening_corr_cuda
 
@@ -153,70 +274,99 @@ def check_kernels(climate_problem, lam_max: float):
         max_abs_err=float(err.max()), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
 
-    # bcd_epoch: B = 4 lambdas, the 256 groups of largest correlation, 10
-    # epochs from a cold start.
+    # The two BCD kernels, each at two shapes.  (a) B = 4 lambdas over the
+    # 256 groups of largest correlation (with y, or with y - 1/2 for the
+    # logistic loss), 10 epochs from a cold start: beta fits in shared
+    # memory.  (b) B = 1 (the logistic path never batches lambdas) over the
+    # full-width buffer the paths sweep before their first dynamic screen:
+    # every group gathered into the power-of-two bucket Gb = 16,384, the
+    # 5,872 padded slots inert, one block of f_ce = 10 epochs at lambda =
+    # 0.3 lambda_max from a cold start: beta stays in global memory.
     B, Gb, E = 4, 256, 10
-    terms = sgl.sgl_dual_norm_terms(corr, prob.tau, prob.w)
-    take = torch.topk(terms, Gb).indices
-    Xg = prob.X.index_select(1, take).permute(1, 0, 2).contiguous()
-    Lg = prob.Lg[take].contiguous()
-    w = prob.w[take].contiguous()
-    fmask = torch.ones((B, Gb, ng), dtype=Xg.dtype, device=dev)
-    lam_b = torch.tensor([0.5, 0.3, 0.2, 0.1], dtype=Xg.dtype,
-                         device=dev) * lam_max
-    beta = torch.zeros((B, Gb, ng), dtype=Xg.dtype, device=dev)
-    resid = prob.y[None].repeat(B, 1).contiguous()
-    kb, kr = bcd_epoch_cuda(Xg, Lg, w, fmask, lam_b, prob.tau, beta, resid, E)
-    rb, rr = ref.bcd_epochs_ref(Xg, Lg, w, fmask, beta, resid, prob.tau,
-                                lam_b, E)
-    # Ten epochs of a nonexpansive prox-gradient map: the reductions'
-    # roundoff (~n u relative) does not grow beyond a small factor, so the
-    # stated tolerance is 1e-10 relative to the largest entry.
-    err_b = float((kb - rb).abs().max())
-    err_r = float((kr - rr).abs().max())
-    ok = (err_b <= 1e-10 * float(rb.abs().max().clamp(min=1e-300))
-          and err_r <= 1e-10 * float(rr.abs().max()))
-    ms = cuda_ms(lambda: bcd_epoch_cuda(Xg, Lg, w, fmask, lam_b, prob.tau,
-                                        beta, resid, E), 5)
-    plain = cuda_ms(lambda: ref.bcd_epochs_ref(Xg, Lg, w, fmask, beta, resid,
-                                               prob.tau, lam_b, E), 1)
-    # Work this input needs at least: the B * E * Gb gradient reductions
-    # (2 n ng flops each); bytes: each input read once, each output written.
-    b_ms, b_by = bound_ms(8.0 * (Gb * n * ng + 2 * Gb + 2 * B * Gb * ng
-                                 + B + 2 * B * n + B * Gb * ng),
-                          2.0 * B * E * Gb * n * ng)
-    log(f"kernel bcd_epoch: B={B} Gb={Gb} n={n} ng={ng} E={E} max_abs_err "
-        f"beta={err_b:.3e} resid={err_r:.3e} tol=1e-10 relative ok={ok} "
-        f"nonzero={int((rb != 0).sum())} ms={ms:.4f} plain_ms={plain:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by})")
-    if not ok:
-        raise AssertionError("bcd_epoch kernel disagrees with its plain version")
-    records["bcd_epoch"] = dict(
-        name="bcd_epoch", route="cuda",
-        source="src/repro_torch/kernels/csrc/bcd_epoch.cu",
-        replaces="src/repro/kernels/bcd_epoch.py:199",
-        max_abs_err=max(err_b, err_r), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
+    _, take_full, X_full, Lg_full, w_full, gmask = _gather_static(
+        prob, np.ones(G, bool))
+    Lg_full = (Lg_full * gmask).contiguous()
+    fmask_full = (prob.feat_mask[take_full].to(prob.X.dtype)
+                  * gmask[:, None])[None].contiguous()
+    cases = (("lsq", "bcd_epoch", prob.y, prob.y, lam_max,
+              "src/repro/kernels/bcd_epoch.py:199"),
+             ("logistic", "bcd_epoch_logistic", y01 - 0.5, y01,
+              lam_max_logistic, "src/repro/kernels/bcd_epoch.py:357"))
+    for loss, name, rho0, y_loss, lmax, replaces in cases:
+        y_arg = None if loss == "lsq" else y_loss
+        corr0 = ops.screening_corr_grouped(prob.X, rho0, xt_pre=Xt)
+        terms = sgl.sgl_dual_norm_terms(corr0, prob.tau, prob.w)
+        take = torch.topk(terms, Gb).indices
+        Xg = prob.X.index_select(1, take).permute(1, 0, 2).contiguous()
+        fmask = torch.ones((B, Gb, ng), dtype=Xg.dtype, device=dev)
+        lam_b = torch.tensor([0.5, 0.3, 0.2, 0.1], dtype=Xg.dtype,
+                             device=dev) * lmax
+        beta = torch.zeros((B, Gb, ng), dtype=Xg.dtype, device=dev)
+        carry = (prob.y[None].repeat(B, 1).contiguous() if loss == "lsq"
+                 else torch.zeros((B, n), dtype=Xg.dtype, device=dev))
+        err, ms, plain, b_ms, b_by = check_bcd(
+            f"B={B} Gb={Gb}", loss, Xg, prob.Lg[take].contiguous(),
+            prob.w[take].contiguous(), fmask, lam_b, prob.tau, beta, carry,
+            y_arg, E, 5)
+        lam1 = torch.full((1,), 0.3 * lmax, dtype=Xg.dtype, device=dev)
+        beta1 = torch.zeros((1, X_full.shape[0], ng), dtype=Xg.dtype,
+                            device=dev)
+        carry1 = (prob.y[None].clone() if loss == "lsq"
+                  else torch.zeros((1, n), dtype=Xg.dtype, device=dev))
+        err_full = check_bcd(
+            "full width", loss, X_full, Lg_full, w_full, fmask_full, lam1,
+            prob.tau, beta1, carry1, y_arg, E, 3)[0]
+        records[name] = dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, max_abs_err=max(err, err_full), ms=ms,
+            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del X_full
+
+    # screening_scores: the static screen's X^T center over the persistent
+    # design, center y / lambda at lambda = lambda_max / 2, tau = 0.4 (the
+    # synthetic problem's static screens, where the path launches it, are
+    # checked by check_synthetic_scores).
+    err, ms, plain, lib, b_ms, b_by = check_scores(
+        "climate", Xt, prob.y / (0.5 * lam_max), prob.tau)
+    records["screening_scores"] = dict(
+        name="screening_scores", route="cuda",
+        source="src/repro_torch/kernels/csrc/screening_scores.cu",
+        replaces="src/repro/kernels/screening_scores.py:114",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib, library="torch.mv + clamp/square (two calls)")
     del Xt
     return records
 
 
-def seq_margins(problem, beta_prev, lam_):
-    """Relative distance of every group's and feature's sequential Theorem-1
-    statistic from its threshold at ``lam_`` from ``beta_prev`` (plain
-    PyTorch on the card)."""
+def check_synthetic_scores(problem, records) -> None:
+    """screening_scores at the inputs of the synthetic rule-family path's
+    static screens (they launch it): the (10,000, 100) persistent design and
+    the static sphere's center y / lambda at the grid's fifth point."""
+    from repro_torch.core import sgl
+    from repro_torch.core.screening import static_sphere
+    from repro_torch.core.session import lambda_grid
+    from repro_torch.kernels import ops
+
+    lam_max = float(sgl.lambda_max(problem))
+    lam = float(lambda_grid(lam_max, T=SYNTHETIC_RULES["T"],
+                            delta=SYNTHETIC_RULES["delta"])[4])
+    center = static_sphere(problem, lam, lam_max).center
+    Xt = ops.prepare_transposed(problem.X)
+    err = check_scores("synthetic static screen", Xt, center.contiguous(),
+                       problem.tau)[0]
+    rec = records["screening_scores"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+
+def theorem1_margins(problem, c, r):
+    """Relative distance of every group's and feature's Theorem-1 statistic
+    from its threshold, for correlations ``c = X^T center`` and radius ``r``
+    (plain PyTorch on the card)."""
     import torch
     from repro_torch.core import sgl
 
     tau, w = problem.tau, problem.w
-    beta = torch.as_tensor(beta_prev, dtype=problem.X.dtype).to(problem.device)
-    resid = problem.y - torch.einsum("ngk,gk->n", problem.X, beta)
-    corr = torch.einsum("ngk,n->gk", problem.X, resid)
-    scale = torch.clamp(sgl.sgl_dual_norm(corr, tau, w), min=lam_)
-    theta = resid / scale
-    gap = torch.clamp(sgl.duality_gap(problem, beta, theta, lam_), min=0.0)
-    r = torch.sqrt(2.0 * gap) / lam_
-    c = corr / scale
     st = torch.linalg.vector_norm(sgl.soft_threshold(c, tau), dim=-1)
     inf = torch.where(problem.feat_mask, c, torch.zeros_like(c)).abs().amax(-1)
     xg = problem.Xnorm_grp
@@ -228,9 +378,40 @@ def seq_margins(problem, beta_prev, lam_):
     return mg, mf
 
 
-def compare_masks(label, problem, res, pres, m):
+def seq_margins(problem, beta_prev, lam_, loss="lsq"):
+    """Margins of the sequential GAP round at ``lam_`` from ``beta_prev``,
+    for any registered loss: Eq. 15 scaling of rho = -grad F(X beta) and the
+    radius sqrt(2 nu gap) / lam."""
+    import torch
+    from repro_torch.core import sgl
+    from repro_torch.losses import resolve_loss
+
+    loss = resolve_loss(loss)
+    beta = torch.as_tensor(beta_prev, dtype=problem.X.dtype).to(problem.device)
+    z = torch.einsum("ngk,gk->n", problem.X, beta)
+    rho = loss.neg_grad(problem.y, z)
+    corr = torch.einsum("ngk,n->gk", problem.X, rho)
+    scale = torch.clamp(sgl.sgl_dual_norm(corr, problem.tau, problem.w),
+                        min=lam_)
+    gap = sgl.duality_gap_loss(problem, loss, beta, rho / scale, lam_)
+    r = torch.sqrt(2.0 * loss.nu * torch.clamp(gap, min=0.0)) / lam_
+    return theorem1_margins(problem, corr / scale, r)
+
+
+def static_margins(problem, lam_, lam_max):
+    """Margins of the static sphere's screen at ``lam_``."""
+    import torch
+    from repro_torch.core.screening import static_sphere
+
+    sph = static_sphere(problem, lam_, lam_max)
+    c = torch.einsum("ngk,n->gk", problem.X, sph.center)
+    return theorem1_margins(problem, c, sph.radius)
+
+
+def compare_masks(label, problem, res, pres, m, margins_at):
     """Certified masks of the kernel and plain paths over the first ``m``
-    lambdas: equal, except a test within BORDERLINE of its threshold."""
+    lambdas: equal, except a test within BORDERLINE of its threshold, as
+    ``margins_at(t)`` recomputes it (None: no exception)."""
     import numpy as np
 
     flips = 0
@@ -240,8 +421,13 @@ def compare_masks(label, problem, res, pres, m):
                          & ~np.isin(np.arange(problem.G), dg)[:, None])
         if dg.size == 0 and df.size == 0:
             continue
-        beta_prev = (res.betas[t - 1] if t else np.zeros_like(res.betas[0]))
-        mg, mf = seq_margins(problem, beta_prev, float(res.lambdas[t]))
+        margins = margins_at(t)
+        if margins is None:
+            raise AssertionError(f"{label}: kernel and plain paths certify "
+                                 f"different active sets at lambda {t}: "
+                                 f"groups {dg.tolist()} features "
+                                 f"{df.tolist()[:8]}")
+        mg, mf = margins
         bad = [int(g) for g in dg if mg[g] > BORDERLINE]
         bad += [(int(g), int(k)) for g, k in df if mf[g, k] > BORDERLINE]
         log(f"path {label} lambda {t}: masks differ at groups {dg.tolist()} "
@@ -253,21 +439,15 @@ def compare_masks(label, problem, res, pres, m):
     return flips
 
 
-def run_path(config, problem):
-    """Drive the main path with the kernels (counts zeroed just before and
-    read just after), then its leading lambdas with the plain backends;
-    returns the launch counts."""
+def drive(label, session, lambdas, kernels=(), idle=()):
+    """Solve ``lambdas`` through the session's path with every launch count
+    zeroed just before and read just after; checks the outputs and that
+    ``kernels`` launched and ``idle`` did not.  Returns (result, counts)."""
     import numpy as np
     import torch
-    from repro_torch.core import SGLSession, SolverConfig
-    from repro_torch.core.session import lambda_grid
     from repro_torch.kernels import _util
 
-    label, tol = config["name"], config["tol"]
-    cfg = SolverConfig(tol=tol)
-    session = SGLSession(problem, cfg)
-    lambdas = lambda_grid(session.lam_max, T=config["T"],
-                          delta=config["delta"])[:config["solve"]]
+    problem = session.problem
     torch.cuda.synchronize()
     _util.reset_launch_counts()
     t0 = time.perf_counter()
@@ -275,58 +455,160 @@ def run_path(config, problem):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _util.launch_counts()
-    log(f"path {label}: n={problem.n} p={problem.G * problem.ng} "
-        f"G={problem.G} T={config['T']} delta={config['delta']} "
-        f"solved={len(lambdas)} tol={tol:g} wall_s={wall:.3f} "
+    cfg = session.config
+    log(f"path {label}: rule={res.rule_name} loss={session.loss.name} "
+        f"n={problem.n} p={problem.G * problem.ng} G={problem.G} "
+        f"solved={len(lambdas)} tol={cfg.tol:g} wall_s={wall:.3f} "
         f"epochs={int(res.epochs.sum())} rounds={res.n_rounds} "
         f"compact={res.n_compact_rounds} full={res.n_full_rounds} "
         f"fused_launches={res.n_fused_epoch_launches} "
         f"batched_lambdas={res.batched_lambdas} "
+        f"certificates_safe={res.certificates_safe} "
         f"transpose_copies={res.n_transpose_copies} "
         f"kernel_demotions={res.kernel_demotions} launches={json.dumps(counts)}")
     log(f"path {label} gaps: {json.dumps([float(g) for g in res.gaps])}")
     log(f"path {label} group_active_frac: "
         f"{json.dumps([float(f) for f in res.group_active_frac])}")
-    log(f"path {label} feat_active_frac: "
-        f"{json.dumps([float(f) for f in res.feat_active_frac])}")
-    log(f"path {label} seq_screened: {res.seq_screened.tolist()}")
-    log(f"path {label} dyn_screened: {res.dyn_screened.tolist()}")
+    log(f"path {label} seq_screened: {res.seq_screened.tolist()} "
+        f"dyn_screened: {res.dyn_screened.tolist()}")
     log(f"path {label} epochs: {res.epochs.tolist()}")
     if not (np.isfinite(res.betas).all() and np.isfinite(res.gaps).all()):
         raise AssertionError(f"{label}: non-finite path output")
     if res.betas.shape != (len(lambdas), problem.G, problem.ng):
         raise AssertionError(f"{label}: betas of shape {res.betas.shape}")
-    if not (res.gaps <= tol).all():
-        raise AssertionError(f"{label}: gaps above tol {tol}: {res.gaps}")
-    for name, c in counts.items():
-        if c <= 0:
+    for name in kernels:
+        if counts[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} never launched")
+    for name in idle:
+        if counts[name] != 0:
+            raise AssertionError(f"{label}: kernel {name} launched "
+                                 f"{counts[name]} times off its path")
     if res.kernel_demotions != 0 or res.n_transpose_copies != 0:
         raise AssertionError(f"{label}: demotions or transposed copies")
+    return res, counts
 
-    # The leading lambdas again with the plain PyTorch backends on the card.
-    # A batch of up to batch_lambdas = 4 points starting near the end of the
-    # shortened grid can be cut by it, so the last 3 are not compared.
-    n_plain = config["plain"]
+
+def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at):
+    """The leading lambdas again with the plain PyTorch backends on the
+    card: no launch, gaps <= tol, masks equal on the first ``m``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SGLSession
+    from repro_torch.kernels import _util
+
     plain_cfg = cfg._replace(screen_backend="torch", solver_backend="torch")
+    before = _util.launch_counts()
     t0 = time.perf_counter()
-    pres = SGLSession(problem, plain_cfg).solve_path(lambdas[:n_plain])
+    pres = SGLSession(problem, plain_cfg).solve_path(lambdas)
     torch.cuda.synchronize()
     pwall = time.perf_counter() - t0
-    if _util.launch_counts() != counts:
+    if _util.launch_counts() != before:
         raise AssertionError(f"{label}: the plain backends launched a kernel")
-    m = n_plain if n_plain == len(lambdas) else n_plain - 3
-    flips = compare_masks(label, problem, res, pres, m)
+    flips = compare_masks(label, problem, res, pres, m, margins_at)
     same_s = bool((pres.seq_screened[:m] == res.seq_screened[:m]).all()
                   and (pres.dyn_screened[:m] == res.dyn_screened[:m]).all())
     dbeta = float(np.abs(pres.betas[:m] - res.betas[:m]).max())
-    log(f"path {label} plain backends: lambdas={n_plain} compared={m} "
+    log(f"path {label} plain backends: lambdas={len(lambdas)} compared={m} "
         f"wall_s={pwall:.3f} epochs={int(pres.epochs.sum())} "
         f"borderline_flips={flips} counters_equal={same_s} "
         f"max_abs_beta_diff={dbeta:.3e} max_gap={float(pres.gaps.max()):.3e}")
-    if not (pres.gaps <= tol).all():
+    if not (pres.gaps <= cfg.tol).all():
         raise AssertionError(f"{label}: plain path gaps above tol")
+
+
+def run_path(config, problem):
+    """Drive a GAP path with the kernels, then its leading lambdas with the
+    plain backends; returns the launch counts of the kernel run."""
+    from repro_torch.core import SGLSession, SolverConfig
+    from repro_torch.core.session import lambda_grid
+
+    label, tol = config["name"], config["tol"]
+    loss = config.get("loss", "lsq")
+    cfg = SolverConfig(tol=tol, loss=loss)
+    session = SGLSession(problem, cfg)
+    lambdas = lambda_grid(session.lam_max, T=config["T"],
+                          delta=config["delta"])[:config["solve"]]
+    log(f"path {label}: T={config['T']} delta={config['delta']} "
+        f"lam_max={session.lam_max:.6e}")
+    res, counts = drive(label, session, lambdas, config["kernels"],
+                        config["idle"])
+    if not (res.gaps <= tol).all():
+        raise AssertionError(f"{label}: gaps above tol {tol}: {res.gaps}")
+    # A batch of up to batch_lambdas = 4 points starting near the end of a
+    # shortened grid can be cut by it, so its last 3 are not compared (only
+    # the least-squares path batches lambdas).
+    n_plain = config["plain"]
+    m = n_plain if n_plain == len(lambdas) or loss != "lsq" else n_plain - 3
+
+    def margins_at(t):
+        beta_prev = res.betas[t - 1] if t else 0.0 * res.betas[0]
+        return seq_margins(problem, beta_prev, float(lambdas[t]), loss)
+
+    plain_rerun(label, problem, cfg, lambdas[:n_plain], res, m, margins_at)
     return counts
+
+
+def run_rules(config, problem):
+    """Drive the rule family's paths on one problem; returns the summed
+    launch counts of the kernel runs."""
+    import numpy as np
+    from repro_torch.core import SGLSession, SolverConfig
+    from repro_torch.core.session import lambda_grid
+
+    tol = config["tol"]
+    lam_max = SGLSession(problem, SolverConfig()).lam_max
+    lambdas = lambda_grid(lam_max, T=config["T"],
+                          delta=config["delta"])[:config["solve"]]
+    # The safety oracle: the GAP path at SAFETY_TOL on the same points (not
+    # a path of the rule family, so its launches are not counted).
+    t0 = time.perf_counter()
+    oracle = SGLSession(problem, SolverConfig(tol=SAFETY_TOL)).solve_path(
+        lambdas)
+    log(f"path {config['name']} safety oracle: rule=gap tol={SAFETY_TOL:g} "
+        f"wall_s={time.perf_counter() - t0:.3f} "
+        f"max_gap={float(oracle.gaps.max()):.3e}")
+    if not (oracle.gaps <= SAFETY_TOL).all():
+        raise AssertionError("safety oracle path above its tol")
+    fm = problem.feat_mask.cpu().numpy()
+    total = {}
+    for rule in config["rules"]:
+        label = f"{config['name']}/{rule}"
+        cfg = SolverConfig(tol=tol, rule=rule)
+        kernels = LSQ_KERNELS + (("screening_scores",) if rule == "static"
+                                 else ())
+        idle = ("bcd_epoch_logistic",) + (() if rule == "static"
+                                          else ("screening_scores",))
+        res, counts = drive(label, SGLSession(problem, cfg), lambdas,
+                            kernels, idle)
+        if not (res.gaps <= tol).all():
+            raise AssertionError(f"{label}: gaps above tol {tol}: {res.gaps}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        leaked = max((float(np.abs(oracle.betas[t])[~res.feat_active[t] & fm]
+                            .max(initial=0.0)) for t in range(len(lambdas))))
+        log(f"path {label} safety: max |beta| screened = {leaked:.3e} "
+            f"(limit {LEAK:g})")
+        if leaked > LEAK:
+            raise AssertionError(f"{label}: screened a variable nonzero in "
+                                 f"the GAP solution at tol {SAFETY_TOL:g}")
+        if rule == "static":
+            def margins_at(t):
+                return static_margins(problem, float(lambdas[t]), lam_max)
+        else:
+            margins_at = lambda t: None  # noqa: E731
+        plain_rerun(label, problem, cfg, lambdas[:config["plain"]], res,
+                    config["plain"], margins_at)
+    # The unsafe strong rule: its discards must be flagged, not certified.
+    label = f"{config['name']}/strong"
+    res, counts = drive(label, SGLSession(problem, SolverConfig(
+        tol=tol, rule="strong")), lambdas, LSQ_KERNELS,
+        ("bcd_epoch_logistic", "screening_scores"))
+    if res.certificates_safe:
+        raise AssertionError(f"{label}: unsafe rule reported safe "
+                             "certificates")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 def main() -> int:
@@ -340,9 +622,11 @@ def main() -> int:
               "it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
     from repro_torch.core import make_problem, sgl
     from repro_torch.data import make_climate_like, make_synthetic
     from repro_torch.kernels import _build
+    from repro_torch.losses import resolve_loss
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -361,24 +645,40 @@ def main() -> int:
     X, y, _, sizes = make_climate_like(n=814, n_lon=144, n_lat=73, n_vars=7)
     climate = make_problem(X, y, sizes, tau=CLIMATE["tau"])
     del X
+    # The logistic path's response: y binarized at its median (balanced
+    # classes), on the same design.
+    y01 = torch.as_tensor((y > np.median(y)).astype(np.float64)).to(
+        climate.device)
+    climate_logistic = climate._replace(y=y01)
     lam_max = float(sgl.lambda_max(climate))
+    lam_max_logistic = float(sgl.lambda_max_loss(climate_logistic,
+                                                 resolve_loss("logistic")))
     log(f"climate problem: n={climate.n} p={climate.G * climate.ng} "
-        f"G={climate.G} ng={climate.ng} setup_s={time.perf_counter() - t0:.2f}")
-    records = check_kernels(climate, lam_max)
+        f"G={climate.G} ng={climate.ng} positives={int(y01.sum())} "
+        f"setup_s={time.perf_counter() - t0:.2f}")
+    records = check_kernels(climate, lam_max, y01, lam_max_logistic)
 
     launches = {k: 0 for k in records}
-    for k, v in run_path(CLIMATE, climate).items():
-        launches[k] += v
-    del climate
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    add(run_path(CLIMATE, climate))
+    add(run_path(CLIMATE_LOGISTIC, climate_logistic))
+    del climate, climate_logistic
     torch.cuda.empty_cache()
 
     X, y, _, sizes = make_synthetic()
     synthetic = make_problem(X, y, sizes, tau=SYNTHETIC["tau"])
-    for k, v in run_path(SYNTHETIC, synthetic).items():
-        launches[k] += v
+    check_synthetic_scores(synthetic, records)
+    add(run_path(SYNTHETIC, synthetic))
+    add(run_rules(SYNTHETIC_RULES, synthetic))
 
     kernels = [dict(records[k], launches=launches[k]) for k in
-               ("corr", "dual_norm", "bcd_epoch")]
+               ("corr", "dual_norm", "bcd_epoch", "screening_scores",
+                "bcd_epoch_logistic")]
+    log(f"whole script s={time.perf_counter() - T_START:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

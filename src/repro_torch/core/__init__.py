@@ -15,13 +15,18 @@ from .epsilon_norm import (  # noqa: E402
 from .sgl import (  # noqa: E402
     SGLProblem,
     dual,
+    dual_loss,
     dual_scale,
+    dual_scale_loss,
     duality_gap,
+    duality_gap_loss,
     flatten,
     group_soft_threshold,
     lambda_max,
+    lambda_max_loss,
     make_problem,
     primal,
+    primal_loss,
     problem_from_grouped,
     sgl_dual_norm,
     sgl_dual_norm_terms,
@@ -33,16 +38,22 @@ from .sgl import (  # noqa: E402
 from .screening import (  # noqa: E402
     ScreenResult,
     Sphere,
+    dst3_sphere,
+    dynamic_sphere,
     gap_sphere,
+    screen,
     screened_dual_bound,
     screened_group_rate,
     sequential_sphere,
+    static_sphere,
 )
 from .solver import (  # noqa: E402
     RoundResult,
     SolveCaches,
     SolveResult,
     bcd_epochs,
+    bcd_epochs_loss,
+    check_rule_loss,
     resolve_backend,
     screen_round,
 )
@@ -53,12 +64,15 @@ __all__ = [
     "SGLProblem", "make_problem", "problem_from_grouped",
     "SGLSession", "SolverConfig", "PathResult", "lambda_grid",
     "lambda_max", "dual_scale", "duality_gap", "primal", "dual",
+    "primal_loss", "dual_loss", "duality_gap_loss", "dual_scale_loss",
+    "lambda_max_loss",
     "sgl_norm", "sgl_dual_norm", "sgl_dual_norm_terms", "sgl_prox",
     "soft_threshold", "group_soft_threshold", "flatten", "unflatten",
     "epsilon_norm", "epsilon_norm_dual", "epsilon_decomposition", "lam",
     "lam_bisect",
     "Sphere", "ScreenResult", "gap_sphere", "sequential_sphere",
+    "static_sphere", "dynamic_sphere", "dst3_sphere", "screen",
     "screened_dual_bound", "screened_group_rate",
     "SolveResult", "SolveCaches", "RoundResult", "bcd_epochs",
-    "resolve_backend", "screen_round",
+    "bcd_epochs_loss", "check_rule_loss", "resolve_backend", "screen_round",
 ]

@@ -16,8 +16,14 @@ new residual from a cached reference (:func:`screened_dual_bound`):
                            + ||X_g||_2 ||resid - resid_ref||_2
 
 (triangle inequality, ``||v||_eps <= ||v||_2`` and Cauchy-Schwarz; the
-proof is in the reference module's docstring).  The static, dynamic and
-DST3 spheres are still to be ported.
+proof is in the reference module's docstring).
+
+The paper's comparison spheres (Section 7.1, Fig. 2): static
+B(y/lam, ||y/lam_max - y/lam||) [El Ghaoui et al.], dynamic
+B(y/lam, ||theta_k - y/lam||) [Bonnefoy et al.] and DST3 (App. C,
+Prop. 11).  :func:`screen` runs the Theorem-1 tests against any sphere; on
+the ``"cuda"`` backend its correlation and S_tau(corr)^2 come from the fused
+screening-scores kernel.
 """
 from __future__ import annotations
 
@@ -26,14 +32,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import sgl
+from .epsilon_norm import epsilon_norm, epsilon_norm_dual
 from .sgl import SGLProblem, soft_threshold
+from ..kernels import ops as kops
 
 __all__ = [
     "ScreenResult",
     "Sphere",
+    "dst3_sphere",
+    "dynamic_sphere",
     "gap_sphere",
+    "screen",
     "sequential_sphere",
     "screen_with_corr",
+    "static_sphere",
     "screened_dual_bound",
     "screened_group_rate",
     "theorem1_tests",
@@ -65,6 +77,45 @@ def sequential_sphere(problem: SGLProblem, beta_prev: torch.Tensor,
     resid = problem.y - torch.einsum("ngk,gk->n", problem.X, beta_prev)
     theta = sgl.dual_scale(problem, resid, lam_new)
     return gap_sphere(problem, beta_prev, theta, lam_new)
+
+
+def static_sphere(problem: SGLProblem, lam_, lam_max) -> Sphere:
+    center = problem.y / lam_
+    radius = torch.linalg.vector_norm(problem.y / lam_max - center)
+    return Sphere(center, radius)
+
+
+def dynamic_sphere(problem: SGLProblem, theta_k: torch.Tensor,
+                   lam_) -> Sphere:
+    center = problem.y / lam_
+    return Sphere(center, torch.linalg.vector_norm(theta_k - center))
+
+
+def dst3_sphere(problem: SGLProblem, theta_k: torch.Tensor, lam_,
+                lam_max) -> Sphere:
+    """DST3 sphere (paper App. C, Prop. 11), extended to the SGL: the
+    dynamic sphere cut by the hyperplane supporting the dual feasible set
+    at y/lambda_max, normal to the gradient of the eps-norm of the most
+    correlated group."""
+    y, tau, w = problem.y, problem.tau, problem.w
+    corr = torch.einsum("ngk,n->gk", problem.X, y)
+    eps = sgl.epsilons(tau, w)
+    scale = sgl.group_weight_total(tau, w)
+    g_star = int(torch.argmax(epsilon_norm(corr, eps) / scale))
+
+    xg = corr[g_star] / lam_max                     # X_{g*}^T y / lam_max
+    eps_s = eps[g_star]
+    nu = epsilon_norm(xg, eps_s)
+    xi_star = soft_threshold(xg, (1.0 - eps_s) * nu)  # eps-part of gradient
+    denom = epsilon_norm_dual(xi_star, eps_s)
+    eta = problem.X[:, g_star] @ xi_star / torch.clamp(denom, min=1e-30)
+
+    yl = y / lam_
+    shift = ((eta @ y) / lam_ - scale[g_star]) / torch.clamp(eta @ eta,
+                                                             min=1e-30)
+    theta_c = yl - shift * eta
+    r2 = ((yl - theta_k) ** 2).sum() - ((yl - theta_c) ** 2).sum()
+    return Sphere(theta_c, torch.sqrt(torch.clamp(r2, min=0.0)))
 
 
 def screened_group_rate(problem: SGLProblem) -> torch.Tensor:
@@ -111,3 +162,27 @@ def screen_with_corr(problem: SGLProblem, sphere: Sphere, corr: torch.Tensor,
     feat_active = feat_active & group_active[:, None] & problem.feat_mask
     group_active = group_active & problem.feat_mask.any(dim=-1)
     return ScreenResult(group_active, feat_active, sphere)
+
+
+def screen(problem: SGLProblem, sphere: Sphere, backend: str = "torch",
+           xt_pre: Optional[torch.Tensor] = None) -> ScreenResult:
+    """Theorem-1 tests against ``sphere``.
+
+    ``backend="cuda"`` computes ``corr = X^T center`` and
+    ``st2 = S_tau(corr)^2`` in one pass of the fused screening-scores kernel
+    over the persistent transposed design ``xt_pre`` (without it, a counted
+    on-the-fly copy is built) and hands ``st2`` to the group test;
+    ``"torch"`` is the plain einsum.  The threshold ``tau`` applies to
+    ``corr`` itself here (a sphere center needs no dual rescaling).
+    """
+    n, G, ng = problem.X.shape
+    if backend == "cuda":
+        Xt = kops.transposed_design(problem.X) if xt_pre is None else xt_pre
+        corr, st2 = kops.screening_scores(Xt, sphere.center, problem.tau)
+        return screen_with_corr(problem, sphere, corr.reshape(G, ng),
+                                st2=st2.reshape(G, ng))
+    if backend != "torch":
+        raise ValueError(f"unknown screen backend: {backend!r} "
+                         "(choose torch|cuda)")
+    corr = torch.einsum("ngk,n->gk", problem.X, sphere.center)
+    return screen_with_corr(problem, sphere, corr)

@@ -1,4 +1,4 @@
-"""Solver-session API, single device, least squares.
+"""Solver-session API, single device.
 
 Counterpart of ``repro/core/session.py`` (the single-device strategy):
 :class:`SGLSession` owns the problem, the resolved backends, a persistent
@@ -24,8 +24,16 @@ epoch loop has that axis too, so the batching gate does not depend on the
 backend here (the reference batches only on its Pallas backend): the
 ``"torch"`` and ``"cuda"`` backends run the same control flow.
 
-Not in this slice: the mesh strategy, losses other than least squares,
-pre-screening rules, solve budgets, fault injection and tracing.
+Rules and losses: every registered rule runs through the same entry points
+(the static rule screens once before the first epoch through the fused
+screening-scores kernel on ``"cuda"``), and ``SolverConfig.loss`` takes any
+single-output registered loss.  As in the reference, a loss other than
+least squares runs full certified rounds only and never batches lambdas,
+and a rule whose sphere is least-squares geometry is refused for it at
+construction.
+
+Not in this slice: the mesh strategy, solve budgets, fault injection and
+tracing.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 
 from . import sgl
 from .sgl import SGLProblem
+from . import screening as scr
 from .solver import (
     BACKENDS,
     RoundResult,
@@ -44,14 +53,18 @@ from .solver import (
     _bucket,
     _dual_terms,
     _inner_rounds,
+    _inner_rounds_loss,
     _screen_round,
     _screen_round_compact,
     bcd_epochs,
+    bcd_epochs_loss,
+    check_rule_loss,
     resolve_backend,
 )
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..kernels._util import resolve_device
+from ..losses import Loss, resolve_loss
 from ..rules import ScreeningRule, resolve_rule
 
 __all__ = ["SolverConfig", "SGLSession", "PathResult", "lambda_grid"]
@@ -74,12 +87,13 @@ class _SolverConfigFields(NamedTuple):
     full_round_every: int = 10     # certified rounds between forced full
                                    #   rounds; <= 0 disables compact rounds
     solver_backend: str = "auto"   # auto | torch | cuda — inner BCD epochs
-    loss: str = "lsq"              # least squares only in this slice
+    loss: Union[str, Loss] = "lsq"  # registered name or Loss object
 
 
 class SolverConfig(_SolverConfigFields):
     """Frozen bundle of every solver knob, the reference's fields and
-    defaults.  Backends and the loss are validated at construction."""
+    defaults.  Backends and the loss are validated at construction (an
+    unknown loss name raises with the registered list)."""
 
     __slots__ = ()
 
@@ -91,10 +105,7 @@ class SolverConfig(_SolverConfigFields):
                 raise ValueError(
                     f"unknown {knob.replace('_', ' ')}: {val!r} "
                     f"(choose one of {'|'.join(BACKENDS)})")
-        if self.loss != "lsq":
-            raise ValueError(
-                f"loss={self.loss!r} is not available: the port solves the "
-                "least-squares SGL; other losses come in a later slice")
+        resolve_loss(self.loss)
         return self
 
 
@@ -191,14 +202,21 @@ class SGLSession:
         self.config = config if config is not None else SolverConfig()
         self.caches = caches if caches is not None else SolveCaches()
         self.rule = resolve_rule(self.config.rule)
-        if self.rule.pre_screens:
-            raise ValueError(f"rule={self.rule.name!r} pre-screens; "
-                             "pre-screening rules come in a later slice")
+        self.loss = resolve_loss(self.config.loss)
+        if self.loss.multi_output:
+            raise ValueError(
+                f"loss={self.loss.name!r} is multi-output; SGLSession solves "
+                "single-output problems (see the core.sgl multitask_* "
+                "helpers for the multi-task screening math)")
+        check_rule_loss(self.rule, self.loss)
         self.backend = resolve_backend(self.config.screen_backend,
                                        self.device, what="screen backend")
         self.solver_backend = resolve_backend(self.config.solver_backend,
                                               self.device,
                                               what="solver backend")
+        # The least-squares and logistic epochs have kernels; another
+        # registered loss runs the plain epoch loop on every backend.
+        self._fused_epochs = self.loss.name in ("lsq", "logistic")
         # Round audit: every certified round, compact vs full, attempts
         # discarded because the screened-group bound crossed the active max,
         # and the estimated FLOPs spent in rounds (fallbacks included).
@@ -222,9 +240,10 @@ class SGLSession:
 
     @property
     def lam_max(self) -> float:
-        """lambda_max = Omega^D(X^T y), computed once per session."""
+        """lambda_max = Omega^D(X^T rho_0), computed once per session
+        (rho_0 = -grad F(0): y for least squares, y - 1/2 logistic)."""
         if self._lam_max is None:
-            self._lam_max = float(sgl.lambda_max(self.problem))
+            self._lam_max = float(sgl.lambda_max_loss(self.problem, self.loss))
         return self._lam_max
 
     @property
@@ -250,8 +269,9 @@ class SGLSession:
         self.full_rounds += 1
         self._rounds_since_full = 0
         self.round_flops += 4.0 * problem.n * problem.G * problem.ng
-        res, resid, terms = _screen_round(problem, beta, lam_, lam_max, rule,
-                                          self.backend, self.xt_pre)
+        res, resid, terms = _screen_round(
+            problem, beta, lam_, lam_max, rule, self.backend, self.xt_pre,
+            loss=None if self.loss.name == "lsq" else self.loss)
         if not np.isfinite(float(res.gap)):
             raise FloatingPointError(
                 f"non-finite certified duality gap at lambda={lam_:.6e}")
@@ -293,8 +313,12 @@ class SGLSession:
         the previous lambda's ``beta`` this is the sequential rule.  ``beta``
         defaults to zeros."""
         rule = self.rule if rule is None else resolve_rule(rule)
+        if rule is not self.rule:
+            check_rule_loss(rule, self.loss)
         if rule.pre_screens:
-            raise ValueError(f"rule={rule.name!r} has no per-round certificate")
+            raise ValueError(f"rule={rule.name!r} has no per-round certificate;"
+                             " use screening.static_sphere + screening.screen,"
+                             " or solve()")
         problem = self.problem
         if beta is None:
             beta = torch.zeros((problem.G, problem.ng), dtype=problem.X.dtype,
@@ -315,6 +339,11 @@ class SGLSession:
         problem = self.problem
         rule = self.rule
         tol, max_epochs, f_ce = cfg.tol, cfg.max_epochs, cfg.f_ce
+        if first_round is not None and rule.pre_screens:
+            # The pre-solve screen re-masks beta0, so a certificate evaluated
+            # at the beta0 passed would not certify the beta being solved.
+            raise ValueError("first_round certifies beta0 as passed; it "
+                             f"cannot be combined with rule={rule.name!r}")
         if first_round is not None and beta0 is None:
             raise ValueError("first_round requires the beta0 it was "
                              "evaluated at")
@@ -352,16 +381,34 @@ class SGLSession:
         feat_active = fm_np.copy()
         n_real_groups = int(group_active.sum())
 
+        # Pre-screening rules (the static sphere) screen once, up front,
+        # through the same Theorem-1 tests; on "cuda" the one correlation is
+        # the fused screening-scores kernel over the persistent design.
+        if rule.pre_screens:
+            center, radius = rule.pre_solve_sphere(problem, lam_,
+                                                   float(lam_max))
+            pre = scr.screen(problem, scr.Sphere(center, radius),
+                             backend=self.backend, xt_pre=self.xt_pre)
+            group_active &= pre.group_active.cpu().numpy()
+            feat_active &= pre.feat_active.cpu().numpy()
+            beta = beta * self._mask(feat_active).to(dtype)
+
         gap_history: list = []
         active_history: list = []
         epochs_done = 0
-        theta = problem.y / max(lam_, float(lam_max))
+        lsq = self.loss.name == "lsq"
+        # Placeholder dual point, overwritten by the first certified round
+        # (rho_0 scaled like Eq. 15, feasible by the lam_max definition).
+        theta = (self.loss.lam_max_rho(problem.y)
+                 / max(lam_, float(lam_max)))
         gap = float("inf")
         round_res = first_round
         # Non-compact branch state: one transposed design for the whole
-        # solve and a carried residual.
+        # solve and a carried residual (least squares) or linear predictor
+        # z = X beta (other losses).
         Xt_full = None
         resid_nc = None
+        z_nc = None
         lam_b1 = torch.full((1,), lam_, dtype=dtype, device=dev)
 
         while epochs_done < max_epochs:
@@ -369,7 +416,9 @@ class SGLSession:
                 # A compact round only pays when the power-of-two bucket is
                 # smaller than the problem.
                 n_act = int(group_active.sum())
-                if (rule.supports_compact and cfg.compact
+                # Compact rounds are least-squares only: the screened-group
+                # bound is proved against the quadratic dual's residual.
+                if (lsq and rule.supports_compact and cfg.compact
                         and cfg.compact_rounds
                         and self._rounds_since_full < cfg.full_round_every
                         and 0 < n_act and _bucket(n_act) < n_real_groups):
@@ -378,9 +427,13 @@ class SGLSession:
                 if round_res is None:
                     round_res = self._certified_round(beta, lam_, lam_max,
                                                       rule, caches=caches)
-                    if not cfg.compact:
+                    if not cfg.compact and lsq:
                         # Reset the carried residual's drift every full round.
                         resid_nc = caches.resid_ref.clone()
+                    elif not cfg.compact:
+                        # The round's reference is rho, not z: recompute the
+                        # carried predictor from beta (same drift reset).
+                        z_nc = None
             if bool(round_res.compact) and float(round_res.gap) <= tol:
                 # The reported gap is always full-problem: re-confirm.
                 round_res = self._certified_round(beta, lam_, lam_max, rule,
@@ -407,11 +460,17 @@ class SGLSession:
                 masks_changed = (int(group_active.sum()) != n_g0
                                  or int(feat_active.sum()) != n_f0)
                 beta_masked = beta * self._mask(feat_active).to(dtype)
-                if resid_nc is not None and masks_changed:
+                if masks_changed and (resid_nc is not None
+                                      or z_nc is not None):
+                    # Keep the carry consistent with the zeroed coefficients.
                     if Xt_full is None:
                         Xt_full = problem.X.permute(1, 0, 2).contiguous()
-                    resid_nc = resid_nc + torch.einsum(
-                        "gnk,gk->n", Xt_full, beta - beta_masked)
+                    moved = torch.einsum("gnk,gk->n", Xt_full,
+                                         beta - beta_masked)
+                    if resid_nc is not None:
+                        resid_nc = resid_nc + moved
+                    else:
+                        z_nc = z_nc - moved
                 beta = beta_masked
 
             active_history.append((epochs_done, int(group_active.sum()),
@@ -423,31 +482,52 @@ class SGLSession:
                 if self.solver_backend == "cuda":
                     xt_rows = caches.gather_xt_rows(problem, group_active,
                                                     self.xt_pre)
-                beta, k_done, _ = _inner_rounds(
-                    Xt, Lg, w, problem.y, beta, self._mask(feat_active), take,
-                    gmask, tau, lam_, tol, check, max_blocks,
-                    self.solver_backend, xt_rows)
+                if lsq:
+                    beta, k_done, _ = _inner_rounds(
+                        Xt, Lg, w, problem.y, beta, self._mask(feat_active),
+                        take, gmask, tau, lam_, tol, check, max_blocks,
+                        self.solver_backend, xt_rows)
+                else:
+                    beta, k_done, _ = _inner_rounds_loss(
+                        Xt, Lg, w, problem.y, beta, self._mask(feat_active),
+                        take, gmask, tau, lam_, tol, self.loss, check,
+                        max_blocks, self.solver_backend, xt_rows)
                 epochs_done += check * int(k_done)
-                if self.solver_backend == "cuda":
+                if self.solver_backend == "cuda" and self._fused_epochs:
                     self.fused_epoch_launches += int(k_done)
             else:
                 if Xt_full is None:
                     Xt_full = problem.X.permute(1, 0, 2).contiguous()
                 fmask = self._mask(feat_active).to(dtype)
                 Lg = problem.Lg * self._mask(group_active).to(dtype)
-                if resid_nc is None:
-                    resid_nc = problem.y - torch.einsum("gnk,gk->n", Xt_full,
-                                                        beta)
-                if self.solver_backend == "cuda":
-                    beta_b, resid_b = kops.bcd_epochs_fused(
-                        Xt_full, Lg, problem.w, fmask[None],
-                        beta[None].contiguous(), resid_nc[None].contiguous(),
-                        tau, lam_b1, f_ce)
-                    beta, resid_nc = beta_b[0], resid_b[0]
-                    self.fused_epoch_launches += 1
+                fused = self.solver_backend == "cuda" and self._fused_epochs
+                if lsq:
+                    if resid_nc is None:
+                        resid_nc = problem.y - torch.einsum(
+                            "gnk,gk->n", Xt_full, beta)
+                    if fused:
+                        beta_b, resid_b = kops.bcd_epochs_fused(
+                            Xt_full, Lg, problem.w, fmask[None], beta[None],
+                            resid_nc[None], tau, lam_b1, f_ce)
+                        beta, resid_nc = beta_b[0], resid_b[0]
+                    else:
+                        beta, resid_nc = bcd_epochs(
+                            Xt_full, Lg, problem.w, fmask, beta, resid_nc,
+                            tau, lam_, f_ce)
                 else:
-                    beta, resid_nc = bcd_epochs(Xt_full, Lg, problem.w, fmask,
-                                                beta, resid_nc, tau, lam_, f_ce)
+                    if z_nc is None:
+                        z_nc = torch.einsum("gnk,gk->n", Xt_full, beta)
+                    if fused:
+                        beta_b, z_b = kops.bcd_epochs_fused(
+                            Xt_full, Lg, problem.w, fmask[None], beta[None],
+                            z_nc[None], tau, lam_b1, f_ce, y=problem.y)
+                        beta, z_nc = beta_b[0], z_b[0]
+                    else:
+                        beta, z_nc = bcd_epochs_loss(
+                            Xt_full, Lg, problem.w, fmask, beta, z_nc, tau,
+                            lam_, problem.y, self.loss, f_ce)
+                if fused:
+                    self.fused_epoch_launches += 1
                 epochs_done += f_ce
 
         return SolveResult(beta=beta, theta=theta, gap=gap,
@@ -685,7 +765,9 @@ class SGLSession:
             if keep_results:
                 results.append(res)
 
-        batch_ok = (sequential and rule.name == "gap" and batch_lambdas > 1)
+        # Batched runs carry the least-squares residual: lsq only.
+        batch_ok = (sequential and rule.name == "gap" and batch_lambdas > 1
+                    and self.loss.name == "lsq")
 
         t = 0
         while t < T_:

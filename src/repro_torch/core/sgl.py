@@ -1,7 +1,6 @@
-"""Sparse-Group Lasso problem definition (paper Sections 3 and 5), least
-squares.
+"""Sparse-Group Lasso problem definition (paper Sections 3 and 5).
 
-Counterpart of the least-squares half of ``repro/core/sgl.py``:
+Counterpart of ``repro/core/sgl.py``:
 
 Primal (Eq. 5):   P(beta) = 1/2 ||y - X beta||^2 + lambda Omega_{tau,w}(beta)
 Norm  (Eq. 10):   Omega_{tau,w}(beta) = tau ||beta||_1
@@ -14,6 +13,11 @@ zero-padded to the largest group), coefficients ``beta (G, ng)``, and a
 boolean ``feat_mask (G, ng)`` marks real features.  Tensors are f64 on the
 problem's device; ``tau`` is a Python float, because the kernels take it by
 value and reading it must never wait for the device.
+
+The ``*_loss`` functions generalize the objectives to any registered
+:class:`repro_torch.losses.Loss` (their lsq branches are the functions
+above), and the ``multitask_*`` helpers hold the multi-task math, which the
+session does not solve.
 """
 from __future__ import annotations
 
@@ -40,6 +44,20 @@ __all__ = [
     "duality_gap",
     "dual_scale",
     "lambda_max",
+    "primal_loss",
+    "dual_loss",
+    "duality_gap_loss",
+    "dual_scale_loss",
+    "lambda_max_loss",
+    "multitask_norm",
+    "multitask_dual_norm_terms",
+    "multitask_dual_norm",
+    "multitask_primal",
+    "multitask_dual",
+    "multitask_duality_gap",
+    "multitask_dual_scale",
+    "multitask_lambda_max",
+    "multitask_group_screen",
     "soft_threshold",
     "group_soft_threshold",
     "group_soft_threshold_keep",
@@ -245,6 +263,136 @@ def lambda_max(problem: SGLProblem) -> torch.Tensor:
     """lambda_max = Omega^D(X^T y)   (paper Eq. 22)."""
     corr = torch.einsum("ngk,n->gk", problem.X, problem.y)
     return sgl_dual_norm(corr, problem.tau, problem.w)
+
+
+# ----------------------------------------------------------------------------
+# Loss-generalized objectives
+# ----------------------------------------------------------------------------
+#
+#     P(beta)  = F(X beta) + lam * Omega_{tau,w}(beta)
+#     D(theta) = -F*(-lam * theta)
+#     rho      = -grad F(X beta)                       (generalized residual)
+#     theta    = rho / max(lam, Omega^D(X^T rho))      (Eq. 15)
+#     lam_max  = Omega^D(X^T rho_0),  rho_0 = -grad F(0)
+#
+# The ``loss.name == "lsq"`` branches are the least-squares functions above.
+
+def primal_loss(problem: SGLProblem, loss, beta: torch.Tensor,
+                lam_) -> torch.Tensor:
+    """``F(X beta) + lam * Omega`` for any registered loss."""
+    if loss.name == "lsq":
+        return primal(problem, beta, lam_)
+    z = torch.einsum("ngk,gk->n", problem.X, beta)
+    return loss.value(problem.y, z) + lam_ * sgl_norm(beta, problem.tau,
+                                                      problem.w)
+
+
+def dual_loss(problem: SGLProblem, loss, theta: torch.Tensor,
+              lam_) -> torch.Tensor:
+    """``D(theta) = -F*(-lam theta)`` for any registered loss."""
+    if loss.name == "lsq":
+        return dual(problem, theta, lam_)
+    return loss.dual_obj(problem.y, theta, lam_)
+
+
+def duality_gap_loss(problem: SGLProblem, loss, beta: torch.Tensor,
+                     theta: torch.Tensor, lam_) -> torch.Tensor:
+    if loss.name == "lsq":
+        return duality_gap(problem, beta, theta, lam_)
+    return (primal_loss(problem, loss, beta, lam_)
+            - dual_loss(problem, loss, theta, lam_))
+
+
+def dual_scale_loss(problem: SGLProblem, loss, beta: torch.Tensor,
+                    lam_) -> torch.Tensor:
+    """Dual feasible point from the loss gradient (Eq. 15 generalized):
+    ``theta = rho / max(lam, Omega^D(X^T rho))``, ``rho = -grad F(X beta)``.
+    The ``>= lam`` floor keeps ``-lam theta`` inside a bounded conjugate
+    domain (logistic)."""
+    z = torch.einsum("ngk,gk->n", problem.X, beta)
+    if loss.name == "lsq":
+        return dual_scale(problem, problem.y - z, lam_)
+    rho = loss.neg_grad(problem.y, z)
+    corr = torch.einsum("ngk,n->gk", problem.X, rho)
+    scale = torch.clamp(sgl_dual_norm(corr, problem.tau, problem.w), min=lam_)
+    return rho / scale
+
+
+def lambda_max_loss(problem: SGLProblem, loss) -> torch.Tensor:
+    """``lam_max = Omega^D(X^T rho_0)``, ``rho_0 = -grad F(0)`` (lsq:
+    Eq. 22; logistic: ``rho_0 = y - 1/2``)."""
+    if loss.name == "lsq":
+        return lambda_max(problem)
+    corr = torch.einsum("ngk,n->gk", problem.X, loss.lam_max_rho(problem.y))
+    return sgl_dual_norm(corr, problem.tau, problem.w)
+
+
+# ----------------------------------------------------------------------------
+# Multi-task SGL math: matrix-valued beta (G, ng, K)
+# ----------------------------------------------------------------------------
+#
+#     Omega(B) = tau * sum_{g,j} ||B[g, j, :]||_2
+#                + (1 - tau) * sum_g w_g ||B_g||_F
+#
+# is the vector SGL norm of the row-norm matrix R[g, j] = ||B[g, j, :]||,
+# so its dual norm is the vector SGL dual norm of the row norms of xi (each
+# row of B enters only through its own l2 norm).  These helpers take raw
+# tensors (Y (n, K), beta (G, ng, K)); the session rejects multi-output
+# losses.
+
+def multitask_norm(beta: torch.Tensor, tau, w: torch.Tensor) -> torch.Tensor:
+    """Row-group SGL norm of matrix-valued beta (G, ng, K)."""
+    rows = torch.linalg.vector_norm(beta, dim=-1)
+    return (tau * rows.sum()
+            + (1.0 - tau) * (w * torch.linalg.vector_norm(rows, dim=-1)).sum())
+
+
+def multitask_dual_norm_terms(xi: torch.Tensor, tau,
+                              w: torch.Tensor) -> torch.Tensor:
+    """Per-group dual-norm terms of the row-group norm: the vector terms
+    (Eq. 20) of the row-norm matrix."""
+    return sgl_dual_norm_terms(torch.linalg.vector_norm(xi, dim=-1), tau, w)
+
+
+def multitask_dual_norm(xi: torch.Tensor, tau, w: torch.Tensor) -> torch.Tensor:
+    return multitask_dual_norm_terms(xi, tau, w).max()
+
+
+def multitask_primal(X, Y, beta, tau, w, lam_) -> torch.Tensor:
+    """``0.5 ||Y - X beta||_F^2 + lam * Omega`` (X (n, G, ng), Y (n, K))."""
+    R = Y - torch.einsum("ngk,gkt->nt", X, beta)
+    return 0.5 * (R * R).sum() + lam_ * multitask_norm(beta, tau, w)
+
+
+def multitask_dual(Y, theta, lam_) -> torch.Tensor:
+    """Quadratic dual at matrix-valued theta (n, K)."""
+    d = theta - Y / lam_
+    return 0.5 * (Y * Y).sum() - 0.5 * lam_ * lam_ * (d * d).sum()
+
+
+def multitask_duality_gap(X, Y, beta, theta, tau, w, lam_) -> torch.Tensor:
+    return (multitask_primal(X, Y, beta, tau, w, lam_)
+            - multitask_dual(Y, theta, lam_))
+
+
+def multitask_dual_scale(X, Y, beta, tau, w, lam_) -> torch.Tensor:
+    """Eq. 15 on the matrix residual: theta = R / max(lam, Omega^D(X^T R))."""
+    R = Y - torch.einsum("ngk,gkt->nt", X, beta)
+    corr = torch.einsum("ngk,nt->gkt", X, R)
+    return R / torch.clamp(multitask_dual_norm(corr, tau, w), min=lam_)
+
+
+def multitask_lambda_max(X, Y, tau, w) -> torch.Tensor:
+    return multitask_dual_norm(torch.einsum("ngk,nt->gkt", X, Y), tau, w)
+
+
+def multitask_group_screen(corr, radius, Xnorm_grp, tau, w) -> torch.Tensor:
+    """Conservative safe group test of the multi-task GAP sphere: group g
+    survives when ``Omega^D_g(X_g^T theta) + r ||X_g||_2 / (tau + (1-tau)
+    w_g) >= 1`` (``Omega^D_g(V) <= ||V||_F / (tau + (1-tau) w_g)``).
+    ``corr``: X^T theta, (G, ng, K); returns (G,) bool, True = survives."""
+    terms = multitask_dual_norm_terms(corr, tau, w)
+    return terms + radius * Xnorm_grp / group_weight_total(tau, w) >= 1.0
 
 
 # ----------------------------------------------------------------------------

@@ -1,16 +1,20 @@
-"""ISTA-BC (block coordinate descent) with GAP safe screening — Algorithm 2,
-least squares.
+"""ISTA-BC (block coordinate descent) with GAP safe screening — Algorithm 2.
 
-Counterpart of the least-squares half of ``repro/core/solver.py``: cyclic
+Counterpart of ``repro/core/solver.py``: cyclic
 BCD over the *active* groups gathered into a dense buffer padded to a
 power-of-two bucket, a certified gap + Theorem-1 round every ``f_ce``
 passes (Eq. 15 dual scaling, Thm 2 sphere), and compacted certified rounds
 that run on the gathered buffer and bound the screened groups' dual-norm
 terms from the last full round (proof in :mod:`repro_torch.core.screening`).
+Other data-fidelity losses (:mod:`repro_torch.losses`) run majorized BCD
+carrying the linear predictor z = X beta (:func:`bcd_epochs_loss`,
+:func:`_inner_rounds_loss`) and screen from the generalized residual
+rho = -grad F(X beta) in full rounds only.
 
 Backends (:func:`resolve_backend`): ``"cuda"`` routes the round's X^T resid
 correlation, its per-group dual-norm terms and the BCD epochs through the
-hand-written kernels (:mod:`repro_torch.kernels.ops`); ``"torch"`` uses
+hand-written kernels (:mod:`repro_torch.kernels.ops`; the logistic epochs
+through their own kernel); ``"torch"`` uses
 plain PyTorch (einsums, the sorted dual norm, the plain epoch loop).
 ``"auto"`` picks ``"cuda"`` for a problem on a CUDA device and ``"torch"``
 for one on the CPU.  A kernel that fails to build or launch raises; nothing
@@ -32,6 +36,7 @@ from . import sgl
 from .sgl import SGLProblem
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..losses import Loss, resolve_loss
 from ..rules import RuleState, ScreeningRule, resolve_rule
 
 __all__ = [
@@ -39,6 +44,8 @@ __all__ = [
     "SolveCaches",
     "RoundResult",
     "bcd_epochs",
+    "bcd_epochs_loss",
+    "check_rule_loss",
     "resolve_backend",
     "screen_round",
 ]
@@ -147,6 +154,22 @@ def bcd_epochs(Xt, Lg, w, feat_mask, beta, resid, tau, lam_, n_epochs: int):
     return b[0], r[0]
 
 
+def bcd_epochs_loss(Xt, Lg, w, feat_mask, beta, z, tau, lam_, y, loss: Loss,
+                    n_epochs: int):
+    """Loss-generic twin of :func:`bcd_epochs`: majorized BCD carrying the
+    linear predictor ``z = X beta`` (plain PyTorch).  Per group:
+    ``rho = loss.neg_grad(y, z)``, a gradient step on the block bound
+    ``nu L_g`` (the per-sample curvature is at most ``nu``), the two-level
+    prox, and ``z += X_g (beta_new - beta_old)``.  Returns new
+    ``(beta, z)``."""
+    lam_b = torch.full((1,), float(lam_), dtype=beta.dtype, device=beta.device)
+    b, zz = kref.bcd_chunked(Xt, Lg, w, feat_mask[None], beta[None], z[None],
+                             tau, lam_b, n_epochs,
+                             grad_of=lambda v: loss.neg_grad(y, v),
+                             nu=float(loss.nu))
+    return b[0], zz[0]
+
+
 # ----------------------------------------------------------------------------
 # Certified gap + screening round
 # ----------------------------------------------------------------------------
@@ -161,6 +184,17 @@ def resolve_backend(backend: str, device: torch.device, *,
         raise ValueError(f"unknown {what}: {backend!r} "
                          f"(choose one of {'|'.join(BACKENDS)})")
     return backend
+
+
+def check_rule_loss(rule: ScreeningRule, loss: Loss) -> None:
+    """Fail fast on a rule x loss pairing the rule's sphere cannot prove
+    (``supported_losses``)."""
+    if rule.supported_losses is not None and (
+            loss.name not in rule.supported_losses):
+        raise ValueError(
+            f"rule={rule.name!r} supports losses {list(rule.supported_losses)}"
+            f", not loss={loss.name!r} (its sphere is built from the quadratic"
+            " dual's y/lambda geometry); use the GAP family for non-lsq losses")
 
 
 def _corr_grouped(problem: SGLProblem, v: torch.Tensor, backend: str,
@@ -180,31 +214,43 @@ def _dual_terms(corr: torch.Tensor, tau: float, w: torch.Tensor,
 
 def _screen_round(problem: SGLProblem, beta: torch.Tensor, lam_: float,
                   lam_max: float, rule: ScreeningRule, backend: str = "torch",
-                  xt_pre: Optional[torch.Tensor] = None):
+                  xt_pre: Optional[torch.Tensor] = None,
+                  loss: Optional[Loss] = None):
     """One FULL gap + screening round — the shared sphere-test skeleton.
 
-    Returns ``(RoundResult, resid, terms)``; ``resid`` and the per-group
-    dual-norm ``terms`` are the reference state compacted rounds bound
-    screened groups from.
+    ``loss``: None (or lsq) for least squares; another loss swaps the
+    residual for ``rho = -grad F(X beta)`` and the gap for the loss's
+    primal/dual pair, and reaches the sphere only through ``RuleState.nu``.
+    A rule that does not supply ``X^T center`` gets it from the
+    backend-routed correlation.  Returns ``(RoundResult, resid, terms)``;
+    ``resid`` and the per-group dual-norm ``terms`` are the reference state
+    compacted rounds bound screened groups from.
     """
-    resid = problem.y - torch.einsum("ngk,gk->n", problem.X, beta)
+    lsq = loss is None or loss.name == "lsq"
+    z = torch.einsum("ngk,gk->n", problem.X, beta)
+    resid = problem.y - z if lsq else loss.neg_grad(problem.y, z)
     corr = _corr_grouped(problem, resid, backend, xt_pre)
     terms = _dual_terms(corr, problem.tau, problem.w, backend)
     scale = torch.clamp(terms.max(), min=lam_)
     theta = resid / scale
-    # sgl.duality_gap, with the residual computed above reused.
-    primal = 0.5 * (resid * resid).sum() + lam_ * sgl.sgl_norm(
-        beta, problem.tau, problem.w)
-    gap = primal - sgl.dual(problem, theta, lam_)
+    norm = sgl.sgl_norm(beta, problem.tau, problem.w)
+    if lsq:
+        # sgl.duality_gap, with the residual computed above reused.
+        primal = 0.5 * (resid * resid).sum() + lam_ * norm
+        gap = primal - sgl.dual(problem, theta, lam_)
+    else:
+        primal = loss.value(problem.y, z) + lam_ * norm
+        gap = primal - loss.dual_obj(problem.y, theta, lam_)
     if rule.is_dynamic:
         state = RuleState(problem=problem, beta=beta, resid=resid, corr=corr,
                           scale=scale, theta=theta, gap=gap, lam=lam_,
-                          lam_max=lam_max)
+                          lam_max=lam_max,
+                          nu=1.0 if lsq else float(loss.nu))
         center, radius, corr_c = rule.center_and_radius(state)
         if corr_c is None:
             corr_c = _corr_grouped(problem, center, backend, xt_pre)
         res = scr.screen_with_corr(problem, scr.Sphere(center, radius), corr_c)
-    else:  # "none": a gap-only round
+    else:  # "none" / "static": a gap-only round
         res = scr.ScreenResult(
             torch.ones((problem.G,), dtype=torch.bool, device=beta.device),
             problem.feat_mask, scr.Sphere(theta, float("inf")))
@@ -277,11 +323,20 @@ def _screen_round_compact(problem: SGLProblem, Xt, take, gmask, beta,
 
 def screen_round(problem: SGLProblem, beta, lam_: float, lam_max: float = 0.0,
                  rule="gap", backend: str = "auto",
-                 xt_pre: Optional[torch.Tensor] = None) -> RoundResult:
+                 xt_pre: Optional[torch.Tensor] = None,
+                 loss="lsq") -> RoundResult:
     """Public resumable-round API: one certified gap + screening round at
     ``lam_``.  At a new lambda with the previous lambda's ``beta`` this is
-    the paper's sequential rule."""
+    the paper's sequential rule.  ``loss``: a registered name or a
+    :class:`repro_torch.losses.Loss`; pairings the rule cannot prove fail
+    fast."""
     rule = resolve_rule(rule)
+    loss = resolve_loss(loss)
+    if loss.multi_output:
+        raise ValueError(f"loss={loss.name!r} is multi-output; the round "
+                         "skeleton supports single-output losses (see the "
+                         "core.sgl multitask_* helpers)")
+    check_rule_loss(rule, loss)
     if rule.pre_screens:
         raise ValueError(f"rule={rule.name!r} has no per-round certificate")
     if rule.needs_lam_max and not lam_max > 0.0:
@@ -291,7 +346,7 @@ def screen_round(problem: SGLProblem, beta, lam_: float, lam_max: float = 0.0,
     res, _resid, _terms = _screen_round(
         problem, beta, float(lam_), float(lam_max), rule,
         resolve_backend(backend, problem.device, what="screen backend"),
-        xt_pre)
+        xt_pre, loss=None if loss.name == "lsq" else loss)
     return res
 
 
@@ -350,6 +405,56 @@ def _inner_rounds(Xt, Lg, w, y, beta, feat_active, take, gmask, tau: float,
                                      lam_, block_epochs)
         k += 1
         gap = float(reduced_gap(bsub, resid))
+    delta = (bsub - bsub0) * fmask
+    return beta.index_add(0, take, delta), k, gap
+
+
+def _inner_rounds_loss(Xt, Lg, w, y, beta, feat_active, take, gmask,
+                       tau: float, lam_: float, tol: float, loss: Loss,
+                       block_epochs: int, max_blocks: int,
+                       backend: str = "torch", xt_rows=None):
+    """Loss-generic twin of :func:`_inner_rounds`: blocks of majorized BCD
+    epochs carrying the linear predictor ``z = X beta``, with the reduced
+    gap built from ``rho = -grad F(z)`` and the loss's conjugate dual read
+    after each block (a work heuristic; the caller re-certifies on the full
+    problem).  ``backend="cuda"`` runs each block of a logistic solve as one
+    launch of the logistic epoch kernel and the reduced-gap correlation and
+    dual norm through their kernels.  Returns
+    ``(beta, blocks_done, last_reduced_gap)``."""
+    dtype = beta.dtype
+    Gb, ng = Xt.shape[0], Xt.shape[2]
+    fmask = feat_active[take].to(dtype) * gmask[:, None]
+    bsub0 = beta[take] * fmask
+    # beta is exactly zero off the buffer, so this IS the full predictor.
+    z0 = torch.einsum("gnk,gk->n", Xt, bsub0)
+    Lg_eff = Lg * gmask
+    lam_b = torch.full((1,), lam_, dtype=dtype, device=beta.device)
+    fused = backend == "cuda" and loss.name == "logistic"
+
+    def reduced_gap(bsub, z):
+        rho = loss.neg_grad(y, z)
+        if backend == "cuda" and xt_rows is not None:
+            corr = kops.screening_corr(xt_rows, rho).reshape(Gb, ng) * fmask
+        else:
+            corr = torch.einsum("gnk,n->gk", Xt, rho) * fmask
+        dn = _dual_terms(corr, tau, w, backend).max()
+        theta = rho / torch.clamp(dn, min=lam_)
+        primal = loss.value(y, z) + lam_ * sgl.sgl_norm(bsub, tau, w)
+        return primal - loss.dual_obj(y, theta, lam_)
+
+    bsub, z = bsub0, z0
+    k, gap = 0, float("inf")
+    while k < max_blocks and gap > tol:
+        if fused:
+            bsub_b, z_b = kops.bcd_epochs_fused(
+                Xt, Lg_eff, w, fmask[None], bsub[None], z[None], tau, lam_b,
+                block_epochs, y=y)
+            bsub, z = bsub_b[0], z_b[0]
+        else:
+            bsub, z = bcd_epochs_loss(Xt, Lg_eff, w, fmask, bsub, z, tau,
+                                      lam_, y, loss, block_epochs)
+        k += 1
+        gap = float(reduced_gap(bsub, z))
     delta = (bsub - bsub0) * fmask
     return beta.index_add(0, take, delta), k, gap
 

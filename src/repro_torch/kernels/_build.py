@@ -6,7 +6,8 @@ so a build takes seconds rather than minutes).  The first call to
 :func:`library` starts one ``nvcc`` per source, all at once, waits for them
 and loads the results; later calls reuse the loaded libraries.  Outputs go
 to ``build/torch_kernels/`` at the root of the checkout, named by a hash of
-the source and the flags, so an unchanged source is not rebuilt.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+unchanged source is not rebuilt.
 
 Nothing here runs at import time: a CPU-only machine imports the package
 without ``nvcc``, and only a launch on a CUDA tensor reaches the build.
@@ -26,7 +27,8 @@ from typing import Dict
 __all__ = ["BUILD_DIR", "SOURCES", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("corr", "dual_norm", "bcd_epoch")
+SOURCES = ("corr", "dual_norm", "bcd_epoch", "screening_scores",
+           "bcd_epoch_logistic")
 # src/repro_torch/kernels/_build.py -> the checkout root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -53,6 +55,8 @@ def _nvcc() -> str:
 def _target(name: str, nvcc: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -24,7 +24,7 @@ import torch
 from . import _util, ref
 from .bcd_epoch import bcd_epoch_cuda
 from .dual_norm import dual_norm_cuda
-from .screening_scores import screening_corr_cuda
+from .screening_scores import screening_corr_cuda, screening_scores_cuda
 
 __all__ = [
     "AuditCounters",
@@ -36,6 +36,7 @@ __all__ = [
     "screening_corr",
     "screening_corr_batched",
     "screening_corr_grouped",
+    "screening_scores",
     "sgl_dual_norm_terms_fused",
     "transpose_copy_count",
     "transposed_design",
@@ -51,6 +52,15 @@ def screening_corr(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     if _on_cpu(Xt):
         return ref.corr_ref(Xt, theta)
     return screening_corr_cuda(Xt.contiguous(), theta.contiguous())
+
+
+def screening_scores(Xt: torch.Tensor, theta: torch.Tensor, tau):
+    """Fused corr = Xt @ theta and st2 = S_tau(corr)^2: Xt (p, n),
+    theta (n,) -> two (p,) tensors."""
+    if _on_cpu(Xt):
+        return ref.screening_scores_ref(Xt, theta, tau)
+    return screening_scores_cuda(Xt.contiguous(), theta.contiguous(),
+                                 float(tau))
 
 
 def screening_corr_batched(Xt: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
@@ -129,20 +139,27 @@ def sgl_dual_norm_terms_fused(corr_grouped: torch.Tensor, tau,
     return dual_norm_groups(corr_grouped, 1.0 - eps, eps) / scale
 
 
-def bcd_epochs_fused(Xt, Lg, w, fmask, beta, resid, tau, lam_b,
-                     n_epochs: int):
+def bcd_epochs_fused(Xt, Lg, w, fmask, beta, carry, tau, lam_b,
+                     n_epochs: int, y=None):
     """Whole blocks of cyclic BCD epochs for B lambdas: ``Xt (Gb, n, ng)``,
     ``Lg``/``w (Gb,)`` shared; ``fmask``/``beta (B, Gb, ng)``,
-    ``resid (B, n)``, ``lam_b (B,)`` one row per lambda; ``tau`` a float.
-    Returns new ``(beta, resid)``."""
+    ``carry (B, n)``, ``lam_b (B,)`` one row per lambda; ``tau`` a float.
+    ``carry`` is the least-squares residual, or with the {0, 1} labels
+    ``y (n,)`` the logistic loss's linear predictor z = X beta (majorized
+    epochs).  Returns new ``(beta, carry)``."""
     if n_epochs <= 0:
-        return beta, resid
+        return beta, carry
     if _on_cpu(Xt):
-        return ref.bcd_epochs_ref(Xt, Lg, w, fmask, beta, resid, tau, lam_b,
-                                  n_epochs)
-    c = [a.contiguous() for a in (Xt, Lg, w, fmask, lam_b, beta, resid)]
-    return bcd_epoch_cuda(c[0], c[1], c[2], c[3], c[4], tau, c[5], c[6],
-                          n_epochs)
+        if y is None:
+            return ref.bcd_epochs_ref(Xt, Lg, w, fmask, beta, carry, tau,
+                                      lam_b, n_epochs)
+        return ref.bcd_epochs_logistic_ref(Xt, Lg, w, fmask, beta, carry, y,
+                                           tau, lam_b, n_epochs)
+    c = [a.contiguous() for a in (Xt, Lg, w, fmask, lam_b, beta, carry)]
+    if y is None:
+        return bcd_epoch_cuda(*c[:5], tau, c[5], c[6], n_epochs)
+    return bcd_epoch_cuda(*c[:5], tau, c[5], c[6], n_epochs,
+                          loss="logistic", y=y.contiguous())
 
 
 class AuditCounters:

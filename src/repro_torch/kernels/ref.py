@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CHUNK", "bcd_epochs_ref", "corr_ref", "dual_norm_ref"]
+__all__ = ["CHUNK", "bcd_chunked", "bcd_epochs_logistic_ref", "bcd_epochs_ref",
+           "corr_ref", "dual_norm_ref", "screening_scores_ref"]
 
 
 def corr_ref(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -26,39 +27,54 @@ def dual_norm_ref(x: torch.Tensor, alpha: torch.Tensor,
     return lam(x, alpha, R)
 
 
-CHUNK = 16   # groups evaluated at once, as the CUDA kernel's widest chunk
+CHUNK = 16   # groups evaluated at once, as the CUDA kernels' widest chunk
 
 
-def bcd_epochs_ref(Xt, Lg, w, fmask, beta, resid, tau, lam_b, n_epochs: int):
-    """Batched cyclic BCD: ``n_epochs`` passes over the Gb groups in order
-    for each of B lambdas.
+def screening_scores_ref(Xt: torch.Tensor, theta: torch.Tensor, tau):
+    """corr = Xt @ theta and st2 = max(|corr| - tau, 0)^2; Xt (p, n),
+    theta (n,) -> two (p,) tensors."""
+    corr = Xt @ theta
+    st = torch.clamp(corr.abs() - tau, min=0.0)
+    return corr, st * st
 
-    The per-group update is that of ``repro.kernels.ref.bcd_epochs_ref``:
-    ``Xt (Gb, n, ng)``, ``Lg``/``w (Gb,)``, ``fmask``/``beta (B, Gb, ng)``,
-    ``resid (B, n)``, ``lam_b (B,)``; groups with ``Lg <= 0`` are inert.
-    Like the CUDA kernel, it evaluates ``CHUNK`` consecutive groups against
-    the current residual at once and keeps the results up to and including
-    the first group whose coefficients change (the residual only changes
-    there; later groups are redone), so every update sees exactly the
-    residual of the serial order.  Returns new ``(beta, resid)``.
+
+def bcd_chunked(Xt, Lg, w, fmask, beta, carry, tau, lam_b, n_epochs: int, *,
+                grad_of=None, nu: float = 1.0):
+    """Batched cyclic (majorized) BCD, evaluated chunk by chunk as the CUDA
+    kernels do; the one plain implementation behind :func:`bcd_epochs_ref`,
+    :func:`bcd_epochs_logistic_ref` and ``core.solver.bcd_epochs_loss``.
+
+    ``carry (B, n)`` is the least-squares residual (``grad_of=None``) or the
+    linear predictor z = X beta of a generic loss, whose negative gradient
+    ``grad_of(z)`` (n,) the group gradients read.  Per group, for each
+    lambda: ``grad = X_g^T rho / (nu L_g)``, the two soft-thresholds at
+    ``tau lam / (nu L_g)`` and ``(1 - tau) w_g lam / (nu L_g)``, and the
+    carry moves by ``X_g (beta_old - beta_new)`` (residual) or
+    ``X_g (beta_new - beta_old)`` (predictor).  Groups with ``Lg <= 0`` are
+    inert.  ``CHUNK`` consecutive groups are evaluated against the current
+    carry at once and kept up to and including the first group whose
+    coefficients change (the carry only changes there; later groups are
+    redone), so every update sees exactly the carry of the serial order.
+    Returns new ``(beta, carry)``.
     """
     beta = beta.clone()
-    resid = resid.clone()
+    carry = carry.clone()
     Gb = Xt.shape[0]
     live = Lg > 0
-    safe_L = torch.where(live, Lg, torch.ones_like(Lg))
+    safe_L = torch.where(live, nu * Lg, torch.ones_like(Lg))
     step = lam_b[:, None] / safe_L[None, :]                  # (B, Gb)
     thr1 = tau * step
     thr2 = (1.0 - tau) * w[None, :] * step
     for b in range(beta.shape[0]):
-        r = resid[b]
+        c = carry[b]
+        rho = c if grad_of is None else grad_of(c)
         for _ in range(n_epochs):
             g0 = 0
             while g0 < Gb:
                 sl = slice(g0, min(g0 + CHUNK, Gb))
                 Xc = Xt[sl]                                  # (k, n, ng)
                 bg = beta[b, sl]
-                z = (bg + torch.einsum("knq,n->kq", Xc, r) / safe_L[sl, None]
+                z = (bg + torch.einsum("knq,n->kq", Xc, rho) / safe_L[sl, None]
                      ) * fmask[b, sl]
                 z = torch.sign(z) * torch.clamp(z.abs() - thr1[b, sl, None],
                                                 min=0.0)
@@ -72,8 +88,33 @@ def bcd_epochs_ref(Xt, Lg, w, fmask, beta, resid, tau, lam_b, n_epochs: int):
                     g0 = sl.stop
                     continue
                 k = int(moved[0, 0])
-                beta[b, g0 + k] = new[k]
-                r = r + Xc[k] @ delta[k]
+                if grad_of is None:
+                    c = rho = c + Xc[k] @ delta[k]
+                else:
+                    c = c + Xc[k] @ (new[k] - bg[k])
+                    rho = grad_of(c)
+                beta[b, g0 + k] = new[k]        # bg is a view: write last
                 g0 += k + 1
-        resid[b] = r
-    return beta, resid
+        carry[b] = c
+    return beta, carry
+
+
+def bcd_epochs_ref(Xt, Lg, w, fmask, beta, resid, tau, lam_b, n_epochs: int):
+    """Batched cyclic BCD for least squares, the plain version of
+    ``csrc/bcd_epoch.cu``: the per-group update of
+    ``repro.kernels.ref.bcd_epochs_ref``.  ``Xt (Gb, n, ng)``,
+    ``Lg``/``w (Gb,)``, ``fmask``/``beta (B, Gb, ng)``, ``resid (B, n)``,
+    ``lam_b (B,)``.  Returns new ``(beta, resid)``."""
+    return bcd_chunked(Xt, Lg, w, fmask, beta, resid, tau, lam_b, n_epochs)
+
+
+def bcd_epochs_logistic_ref(Xt, Lg, w, fmask, beta, z, y, tau, lam_b,
+                            n_epochs: int):
+    """Batched majorized BCD for the logistic loss, the plain version of
+    ``csrc/bcd_epoch_logistic.cu``: the per-group update of
+    ``repro.kernels.ref.bcd_epochs_logistic_ref`` (block bound ``Lg / 4``,
+    ``rho = y - sigmoid(z)`` from the current predictor, ``z += X_g
+    (beta_new - beta_old)``).  ``z (B, n)`` is the linear predictor, ``y
+    (n,)`` the {0, 1} labels.  Returns new ``(beta, z)``."""
+    return bcd_chunked(Xt, Lg, w, fmask, beta, z, tau, lam_b, n_epochs,
+                       grad_of=lambda zz: y - torch.sigmoid(zz), nu=0.25)

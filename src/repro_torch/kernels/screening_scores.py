@@ -1,15 +1,17 @@
-"""Correlation kernel wrapper: corr = Xt @ theta on the card.
+"""Correlation kernel wrappers: corr = Xt @ theta on the card, alone or
+fused with the screening statistic S_tau(corr)^2.
 
-Counterpart of ``repro/kernels/screening_scores.py::screening_corr_pallas``.
-Only the corr-only variant is ported in this slice; the fused
-``screening_scores`` kernel (corr + S_tau(corr)^2, reached only by the static
-rule's pre-screen) is still to be ported.
+Counterparts of ``repro/kernels/screening_scores.py``:
 
-The kernel itself is ``csrc/corr.cu`` (one warp per design row, up to 8
-residuals per launch, see the source for its bound and design);
-:func:`screening_corr_cuda` checks the operands, launches it on PyTorch's
-current stream and counts the launch.  Batches wider than 8 are split into
-launches of at most 8 residuals each.
+* :func:`screening_corr_cuda` replaces ``screening_corr_pallas``; its kernel
+  is ``csrc/corr.cu`` (one warp per design row, up to 8 residuals per
+  launch).  Batches wider than 8 are split into launches of at most 8.
+* :func:`screening_scores_cuda` replaces ``screening_scores_pallas``; its
+  kernel is ``csrc/screening_scores.cu`` (corr.cu's row-per-warp matvec for
+  one vector, the soft-threshold applied by the lane that writes the row).
+
+Each checks the operands, launches on PyTorch's current stream and counts
+the launch (see the sources for their bounds and designs).
 """
 from __future__ import annotations
 
@@ -26,9 +28,12 @@ from ._util import (
     stream_handle,
 )
 
-__all__ = ["LAUNCHES", "corr_launch_spec", "screening_corr_cuda"]
+__all__ = ["LAUNCHES", "SCORES_LAUNCHES", "corr_launch_spec",
+           "screening_corr_cuda", "screening_scores_cuda",
+           "screening_scores_launch_spec"]
 
 LAUNCHES = LaunchCounter("corr")
+SCORES_LAUNCHES = LaunchCounter("screening_scores")
 BLOCK = 256           # 8 warps, one design row each
 MAX_BATCH = 8         # residuals accumulated per launch (kMaxB in corr.cu)
 
@@ -76,3 +81,46 @@ def screening_corr_cuda(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
         raise_on_launch_error(lib, "corr", code)
         LAUNCHES.add()
     return out[0] if single else out
+
+
+def screening_scores_launch_spec(p: int, n: int) -> LaunchSpec:
+    """Geometry of one fused-scores launch over a (p, n) design."""
+    rows = BLOCK // 32
+    return LaunchSpec("screening_scores", (-(-p // rows), 1, 1),
+                      (BLOCK, 1, 1), 0)
+
+
+def _scores_lib() -> ctypes.CDLL:
+    lib = _build.library("screening_scores")
+    if lib.screening_scores_launch.argtypes is None:
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.screening_scores_launch.argtypes = [vp, vp, vp, vp, ci, ci, cd,
+                                                ci, ci, vp]
+        lib.screening_scores_launch.restype = ctypes.c_int
+        lib.screening_scores_error_string.argtypes = [ci]
+        lib.screening_scores_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def screening_scores_cuda(Xt: torch.Tensor, theta: torch.Tensor, tau: float):
+    """Xt (p, n), theta (n,) -> ``(corr, st2)``, both (p,):
+    corr = Xt @ theta, st2 = max(|corr| - tau, 0)^2."""
+    if Xt.dim() != 2 or theta.dim() != 1:
+        raise ValueError(f"expected Xt (p, n) and theta (n,), got "
+                         f"{tuple(Xt.shape)} and {tuple(theta.shape)}")
+    p, n = Xt.shape
+    check_operand("Xt", Xt, (p, n))
+    check_operand("theta", theta, (n,))
+    corr = torch.empty((p,), dtype=Xt.dtype, device=Xt.device)
+    st2 = torch.empty_like(corr)
+    if p == 0:
+        return corr, st2
+    lib = _scores_lib()
+    spec = screening_scores_launch_spec(p, n)
+    code = lib.screening_scores_launch(Xt.data_ptr(), theta.data_ptr(),
+                                       corr.data_ptr(), st2.data_ptr(), p, n,
+                                       float(tau), spec.grid[0],
+                                       spec.block[0], stream_handle())
+    raise_on_launch_error(lib, "screening_scores", code)
+    SCORES_LAUNCHES.add()
+    return corr, st2

@@ -35,6 +35,8 @@ class RuleState(NamedTuple):
     gap: torch.Tensor     # duality gap at (beta, theta)
     lam: float            # regularisation level of this round
     lam_max: float        # lambda_max (0.0 when the caller does not know it)
+    nu: float = 1.0       # the loss's smoothness constant: GAP radius
+                          #   sqrt(2 nu gap) / lam
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +50,10 @@ class ScreeningRule:
     epoch); ``supports_compact`` the compacted certified round reproduces
     the sphere exactly (GAP only); ``pre_screens`` the rule screens once
     before the first epoch; ``needs_lam_max`` the sphere divides by the true
-    lambda_max.
+    lambda_max; ``supported_losses`` None when the sphere holds for every
+    registered loss, else the tuple of loss names it is proved for (the
+    static, dynamic and DST3 spheres use the quadratic dual's y/lambda
+    geometry: least squares only).
     """
 
     name = "abstract"
@@ -58,6 +63,7 @@ class ScreeningRule:
     supports_compact = False
     pre_screens = False
     needs_lam_max = False
+    supported_losses = None
 
     def center_and_radius(
         self, state: RuleState
@@ -66,6 +72,13 @@ class ScreeningRule:
         ``X^T center`` (grouped) when the rule has it for free, else None and
         the skeleton computes it.  Only called when ``is_dynamic``."""
         raise NotImplementedError(f"{type(self).__name__} is not dynamic")
+
+    def pre_solve_sphere(self, problem, lam_, lam_max):
+        """``(center, radius)`` of the sphere applied once before the first
+        epoch; only consulted when ``pre_screens``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} sets pre_screens=True but does not "
+            "implement pre_solve_sphere()")
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(name={self.name!r})"

@@ -14,8 +14,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "tools" / "profile_torch_path.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_path.py",
+    ROOT / "tools" / "lambda_cost_torch.py",
+    ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -41,7 +43,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[m] = None\n"
         "import repro_torch.core, repro_torch.kernels.ops, repro_torch.convert\n"
-        "import repro_torch.data, repro_torch.rules\n"
+        "import repro_torch.data, repro_torch.rules, repro_torch.losses\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -55,7 +57,7 @@ def test_port_imports_with_jax_blocked():
 
 _LAUNCH_SITES = [PORT / "kernels" / f for f in
                  ("ops.py", "screening_scores.py", "dual_norm.py",
-                  "bcd_epoch.py", "_build.py")] + [
+                  "bcd_epoch.py", "bcd_epoch_logistic.py", "_build.py")] + [
     PORT / "core" / "solver.py", PORT / "core" / "session.py",
     ROOT / "chip_smoke.py"]
 
@@ -121,8 +123,11 @@ def test_backend_knobs_are_validated():
 
     with pytest.raises(ValueError, match="auto|torch|cuda"):
         SolverConfig(screen_backend="pallas")
-    with pytest.raises(ValueError, match="later slice"):
-        SolverConfig(loss="logistic")
+    SolverConfig(loss="logistic")          # registered: accepted
+    with pytest.raises(ValueError,
+                       match=r"registered losses: \['logistic', 'lsq', "
+                             r"'multitask'\]"):
+        SolverConfig(loss="huber")
 
 
 def test_precision_posture_switches_tf32_off():
