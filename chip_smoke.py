@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the five hand-written CUDA kernels from ``src/repro_torch/kernels/
+It builds the six hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc`` (into ``build/torch_kernels/``), holds each kernel against its plain
 PyTorch version on the card at its paths' shapes, and drives the paths
 through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
@@ -16,7 +16,12 @@ through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
 * the logistic GAP path on the climate configuration at full width, its
   response binarized at the median;
 * the paper's rule family (static, dynamic, DST3 and the unsafe strong rule)
-  on the synthetic configuration.
+  on the synthetic configuration;
+* the observability layer: the kernel-timing harness
+  (``repro_torch.obs.timing.measure_kernels(scale="paper")``, the entry
+  point that runs the ``sgl_prox`` kernel), the ``python -m repro_torch.obs
+  --check`` gate with a smoke solve on the card, and the synthetic path
+  again with tracing on, which must give the untraced run's bits.
 
 Every launch count is set to 0 just before each path and read just after;
 the leading lambdas of each path are solved again with the plain PyTorch
@@ -39,12 +44,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f64 rate on the CUDA
-# cores (the kernels do not use the f64 tensor cores).
-HBM_BYTES_PER_S = 3.35e12
-F64_FLOP_PER_S = 34e12
-U = 2.0 ** -53            # unit roundoff of f64
 
 # Path configurations.  ``solve``: how many leading points of the T-point
 # grid the path solves; ``plain``: how many of those are solved again with
@@ -80,7 +79,9 @@ def log(*parts) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+    """Mean time of ``fn`` over a loop of ``reps`` calls between two CUDA
+    events, after one warm-up: for a kernel shorter than its wrapper's host
+    path, this is the host's launch rate."""
     import torch
 
     fn()
@@ -95,32 +96,40 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F64_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def graph_ms(fn, reps: int) -> float:
+    """Device time (ms) per call of ``fn``: ``reps`` calls replayed from one
+    CUDA graph (``repro_torch.obs.timing.graph_time``), no host work between
+    the kernels.  The kernels' ``ms``."""
+    import torch
+    from repro_torch.obs.timing import graph_time
+
+    return graph_time(fn, (), reps, torch.device("cuda")) * 1e3
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str = "float64"):
+    """The least time (ms) the card could take: the H100 peaks of
+    ``repro_torch.launch.roofline``, the ones the timing harness divides by."""
+    from repro_torch.launch.roofline import bound_s
+
+    t, by = bound_s(flops, nbytes, dtype)
+    return t * 1e3, by
 
 
 def check_scores(label, Xt, center, tau, reps: int = 20):
     """screening_scores against its plain version on ``Xt (p, n)`` and the
-    static sphere's ``center``; returns (max_abs_err, ms, plain_ms,
+    static sphere's ``center``; returns (max_abs_err, ms, loop_ms, plain_ms,
     library_ms, bound_ms, bound_by)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.screening_scores import screening_scores_cuda
+    from repro_torch.obs.timing import close_scores
 
     p, n = Xt.shape
-    got_c, got_s = screening_scores_cuda(Xt, center, tau)
-    want_c, want_s = ref.screening_scores_ref(Xt, center, tau)
-    # corr: corr's elementwise bound b; st2 = s^2 with s = max(|corr| - tau,
-    # 0): |s_k - s_p| <= b + 2 u s, so the squares differ by at most
-    # 2 |corr| b + b^2 plus the roundings of the subtraction and the square.
-    b_el = 2 * n * U * ref.corr_ref(Xt.abs(), center.abs())
-    err_c = (got_c - want_c).abs()
-    err_s = (got_s - want_s).abs()
-    tol_s = 2 * want_c.abs() * b_el + b_el * b_el + 6 * U * want_s + U
-    ok = bool((err_c <= b_el).all() and (err_s <= tol_s).all())
-    ms = cuda_ms(lambda: screening_scores_cuda(Xt, center, tau), reps)
+    want = ref.screening_scores_ref(Xt, center, tau)
+    err, ok = close_scores((Xt, center, tau),
+                           screening_scores_cuda(Xt, center, tau), want)
+    ms = graph_ms(lambda: screening_scores_cuda(Xt, center, tau), reps)
+    loop = cuda_ms(lambda: screening_scores_cuda(Xt, center, tau), reps)
     plain = cuda_ms(lambda: ref.screening_scores_ref(Xt, center, tau), reps)
 
     def library():
@@ -131,23 +140,25 @@ def check_scores(label, Xt, center, tau, reps: int = 20):
     lib = cuda_ms(library, reps)
     b_ms, b_by = bound_ms(8.0 * (p * n + n + 2 * p), 2.0 * p * n + 3.0 * p)
     log(f"kernel screening_scores ({label}): shape Xt ({p}, {n}) tau={tau} "
-        f"max_abs_err corr={float(err_c.max()):.3e} st2={float(err_s.max()):.3e}"
-        f" tol corr=2*n*u*(|Xt|@|theta|) st2=2|corr|b+b^2+6u*st2+u ok={ok} "
-        f"screened={int((want_s == 0).sum())} ms={ms:.4f} plain_ms={plain:.4f}"
+        f"max_abs_err={err:.3e} tol corr=2*n*u*(|Xt|@|theta|) "
+        f"st2=2|corr|b+b^2+6u*st2+u ok={ok} "
+        f"screened={int((want[1] == 0).sum())} ms={ms:.4f} loop_ms={loop:.4f} "
+        f"plain_ms={plain:.4f}"
         f" torch.mv+clamp/square_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
     if not ok:
         raise AssertionError(f"screening_scores kernel disagrees with its "
                              f"plain version ({label})")
-    return float(max(err_c.max(), err_s.max())), ms, plain, lib, b_ms, b_by
+    return err, ms, loop, plain, lib, b_ms, b_by
 
 
 def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
               reps: int):
     """One BCD epoch kernel (``loss`` "lsq": residual carry, "logistic":
     predictor carry with labels ``y``) against its plain version; returns
-    (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    (max_abs_err, ms, loop_ms, plain_ms, bound_ms, bound_by)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec
+    from repro_torch.obs.timing import close_epochs
 
     name = "bcd_epoch" if loss == "lsq" else "bcd_epoch_logistic"
     Gb, n, ng = Xg.shape
@@ -164,16 +175,10 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
         return ref.bcd_epochs_logistic_ref(Xg, Lg, w, fmask, beta, carry, y,
                                            tau, lam_b, E)
 
-    kb, kc = kernel()
     rb, rc = plain()
-    # E epochs of a nonexpansive prox-gradient map: the reductions' roundoff
-    # (~n u relative) does not grow beyond a small factor, so the stated
-    # tolerance is 1e-10 relative to the largest entry.
-    err_b = float((kb - rb).abs().max())
-    err_c = float((kc - rc).abs().max())
-    ok = (err_b <= 1e-10 * float(rb.abs().max().clamp(min=1e-300))
-          and err_c <= 1e-10 * float(rc.abs().max().clamp(min=1e-300)))
-    ms = cuda_ms(kernel, reps)
+    err, ok = close_epochs((), kernel(), (rb, rc))
+    ms = graph_ms(kernel, reps)
+    loop = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(plain, 1)
     # Work this input needs at least: the B * E * (live groups) gradient
     # reductions (2 n ng flops each); bytes: each input read once, each
@@ -184,14 +189,15 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
     b_ms, b_by = bound_ms(nbytes, 2.0 * B * E * live * n * ng)
     in_smem = bcd_epoch_launch_spec(B, Gb, n, ng, loss)[1]
     log(f"kernel {name} ({label}): B={B} Gb={Gb} live={live} n={n} ng={ng} "
-        f"E={E} beta_in_smem={int(in_smem)} max_abs_err beta={err_b:.3e} "
-        f"carry={err_c:.3e} tol=1e-10 relative ok={ok} "
-        f"nonzero={int((rb != 0).sum())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"E={E} beta_in_smem={int(in_smem)} max_abs_err={err:.3e} "
+        f"tol=1e-10 relative to the largest entry ok={ok} "
+        f"nonzero={int((rb != 0).sum())} ms={ms:.4f} loop_ms={loop:.4f} "
+        f"plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain "
                              f"version ({label})")
-    return max(err_b, err_c), ms, plain_ms, b_ms, b_by
+    return err, ms, loop, plain_ms, b_ms, b_by
 
 
 def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
@@ -205,6 +211,7 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dual_norm import dual_norm_cuda
     from repro_torch.kernels.screening_scores import screening_corr_cuda
+    from repro_torch.obs.timing import close_dot
 
     prob = climate_problem
     dev = prob.device
@@ -219,23 +226,19 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     theta = prob.y.clone()
     thetas = torch.randn((8, n), generator=gen, dtype=Xt.dtype, device=dev)
     for name, th in (("corr", theta), ("corr[B=8]", thetas)):
-        got = screening_corr_cuda(Xt, th)
-        want = ref.corr_ref(Xt, th)
-        # Any f64 summation order of a length-n dot product is within
-        # n u sum|x_i t_i| of the exact value, so two orders differ by at
-        # most twice that: the stated tolerance, elementwise.
-        scale = ref.corr_ref(Xt.abs(), th.abs())
-        err = (got - want).abs()
-        ok = bool((err <= 2 * n * U * scale).all())
+        err, ok = close_dot((Xt, th), (screening_corr_cuda(Xt, th),),
+                            (ref.corr_ref(Xt, th),))
         B = 1 if th.dim() == 1 else th.shape[0]
-        ms = cuda_ms(lambda: screening_corr_cuda(Xt, th), 20)
+        ms = graph_ms(lambda: screening_corr_cuda(Xt, th), 20)
+        loop = cuda_ms(lambda: screening_corr_cuda(Xt, th), 20)
         plain = cuda_ms(lambda: ref.corr_ref(Xt, th), 20)
         lib = cuda_ms(lambda: torch.mv(Xt, th) if th.dim() == 1
                       else torch.mm(th, Xt.T), 20)
         b_ms, b_by = bound_ms(8.0 * (p * n + B * n + B * p), 2.0 * p * n * B)
         log(f"kernel {name}: shape Xt ({p}, {n}) B={B} max_abs_err="
-            f"{float(err.max()):.3e} tol=2*n*u*(|Xt|@|theta|) ok={ok} "
-            f"ms={ms:.4f} plain_ms={plain:.4f} torch.mv/mm_ms={lib:.4f} "
+            f"{err:.3e} tol=2*n*u*(|Xt|@|theta|) ok={ok} "
+            f"ms={ms:.4f} loop_ms={loop:.4f} plain_ms={plain:.4f} "
+            f"torch.mv/mm_ms={lib:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
         if not ok:
             raise AssertionError(f"{name} kernel disagrees with its plain version")
@@ -244,7 +247,7 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
                 name="corr", route="cuda",
                 source="src/repro_torch/kernels/csrc/corr.cu",
                 replaces="src/repro/kernels/screening_scores.py:156",
-                max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
+                max_abs_err=err, ms=ms, loop_ms=loop, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
     # dual_norm: the full round's per-group Omega^D terms at X^T y.
@@ -259,20 +262,34 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     err = (got - want).abs()
     rel = float((err / want.abs().clamp(min=1e-300)).max())
     ok = rel <= 1e-12
-    ms = cuda_ms(lambda: dual_norm_cuda(corr, alpha, R), 50)
+    ms = graph_ms(lambda: dual_norm_cuda(corr, alpha, R), 50)
+    loop = cuda_ms(lambda: dual_norm_cuda(corr, alpha, R), 50)
     plain = cuda_ms(lambda: ref.dual_norm_ref(corr, alpha, R), 10)
     b_ms, b_by = bound_ms(8.0 * (G * ng + 3 * G), 64.0 * G * (4 * ng + 4))
     log(f"kernel dual_norm: shape x ({G}, {ng}) max_abs_err={float(err.max()):.3e}"
         f" max_rel_err={rel:.3e} tol=1e-12 relative ok={ok} ms={ms:.4f} "
+        f"loop_ms={loop:.4f} "
         f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by})")
     if not ok:
         raise AssertionError("dual_norm kernel disagrees with its plain version")
+    # The same groups scaled far below and far above 1, where squares of the
+    # raw entries under- or overflow: the kernel bisects on x / ||x||_inf.
+    for scale in (1e-170, 1e170):
+        xs = corr * scale
+        got_s, want_s = dual_norm_cuda(xs, alpha, R), ref.dual_norm_ref(xs, alpha, R)
+        rel_s = float(((got_s - want_s).abs()
+                       / want_s.abs().clamp(min=1e-300)).max())
+        log(f"kernel dual_norm: groups scaled by {scale:g} max_rel_err="
+            f"{rel_s:.3e} tol=1e-12 relative ok={rel_s <= 1e-12}")
+        if not rel_s <= 1e-12:
+            raise AssertionError(f"dual_norm kernel disagrees with its plain "
+                                 f"version on groups scaled by {scale:g}")
     records["dual_norm"] = dict(
         name="dual_norm", route="cuda",
         source="src/repro_torch/kernels/csrc/dual_norm.cu",
         replaces="src/repro/kernels/dual_norm.py:87",
-        max_abs_err=float(err.max()), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
+        max_abs_err=float(err.max()), ms=ms, loop_ms=loop, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # The two BCD kernels, each at two shapes.  (a) B = 4 lambdas over the
     # 256 groups of largest correlation (with y, or with y - 1/2 for the
@@ -304,7 +321,7 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
         beta = torch.zeros((B, Gb, ng), dtype=Xg.dtype, device=dev)
         carry = (prob.y[None].repeat(B, 1).contiguous() if loss == "lsq"
                  else torch.zeros((B, n), dtype=Xg.dtype, device=dev))
-        err, ms, plain, b_ms, b_by = check_bcd(
+        err, ms, loop, plain, b_ms, b_by = check_bcd(
             f"B={B} Gb={Gb}", loss, Xg, prob.Lg[take].contiguous(),
             prob.w[take].contiguous(), fmask, lam_b, prob.tau, beta, carry,
             y_arg, E, 5)
@@ -320,23 +337,232 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, max_abs_err=max(err, err_full), ms=ms,
-            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            loop_ms=loop, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
     del X_full
 
     # screening_scores: the static screen's X^T center over the persistent
     # design, center y / lambda at lambda = lambda_max / 2, tau = 0.4 (the
     # synthetic problem's static screens, where the path launches it, are
     # checked by check_synthetic_scores).
-    err, ms, plain, lib, b_ms, b_by = check_scores(
+    err, ms, loop, plain, lib, b_ms, b_by = check_scores(
         "climate", Xt, prob.y / (0.5 * lam_max), prob.tau)
     records["screening_scores"] = dict(
         name="screening_scores", route="cuda",
         source="src/repro_torch/kernels/csrc/screening_scores.cu",
         replaces="src/repro/kernels/screening_scores.py:114",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib, library="torch.mv + clamp/square (two calls)")
+        max_abs_err=err, ms=ms, loop_ms=loop, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+        library="torch.mv + clamp/square (two calls)")
     del Xt
     return records
+
+
+def check_prox(prob, lam_max: float):
+    """sgl_prox against its plain version on the card: the timing harness's
+    (4,096, 8) in f64 and f32, the climate problem's width (10,512, 7) at its
+    real w and tau = 0.4 (a gradient step from 0 at lambda_max / 2), and the
+    batched wrapper over B = 8 lambdas at that width.  Tolerance: rtol = atol
+    = 1e-12 in f64 and 1e-5 in f32, as the reference's kernel tests.
+    Returns the record of the (4,096, 8) f64 case (the harness's shape)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sgl_prox import sgl_prox_cuda
+    from repro_torch.obs.timing import close_prox
+
+    dev = prob.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    G, ng = prob.G, prob.ng
+    z = torch.einsum("ngk,n->gk", prob.X, prob.y)
+    safe_L = prob.Lg.clamp(min=1e-300)
+    B = 8
+    lam_b = torch.linspace(0.9, 0.1, B, dtype=z.dtype, device=dev) * lam_max
+    L = float(prob.Lg.max())
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        beta = torch.randn((4096, 8), generator=gen, dtype=torch.float64,
+                           device=dev).to(dtype)
+        step = torch.full((4096,), 0.05, dtype=dtype, device=dev)
+        w = torch.ones(4096, dtype=dtype, device=dev)
+        cases.append((f"(4096, 8) {str(dtype)[6:]}", dtype,
+                      lambda b=beta, s=step, w=w: sgl_prox_cuda(b, s, w, 0.3, 1.0),
+                      lambda b=beta, s=step, w=w: ref.sgl_prox_ref(b, s, w, 0.3, 1.0),
+                      (4096, 8, 1)))
+    beta_c = (z / safe_L[:, None]).contiguous()
+    step_c = (1.0 / safe_L).contiguous()
+    lam_c = 0.5 * lam_max
+    cases.append(("climate (10512, 7) float64", torch.float64,
+                  lambda: sgl_prox_cuda(beta_c, step_c, prob.w, prob.tau, lam_c),
+                  lambda: ref.sgl_prox_ref(beta_c, step_c, prob.w, prob.tau,
+                                           lam_c),
+                  (G, ng, 1)))
+    beta_b = (z / L)[None].repeat(B, 1, 1).contiguous()
+    step_b = (lam_b / L)[:, None].expand(B, G).reshape(-1)
+    w_b = prob.w[None].expand(B, G).reshape(-1)
+    cases.append((f"batched B={B} climate (10512, 7) float64", torch.float64,
+                  lambda: ops.sgl_prox_batched(beta_b, lam_b, L, prob.w,
+                                               prob.tau),
+                  lambda: ref.sgl_prox_ref(beta_b.reshape(B * G, ng), step_b,
+                                           w_b, prob.tau, 1.0).reshape(B, G, ng),
+                  (G, ng, B)))
+    record = None
+    for label, dtype, kernel, plain, (g, k, b) in cases:
+        got = kernel()
+        err, ok = close_prox((), (got,), (plain(),))
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        ms = graph_ms(kernel, 200)
+        loop = cuda_ms(kernel, 200)
+        plain_ms = cuda_ms(plain, 20)
+        item = 8 if dtype == torch.float64 else 4
+        # each input read once, each output written once: beta and out
+        # (b, g, k); step and w (g,) each, or lam_b (b,) and w (g,) batched
+        nbytes = item * (2 * b * g * k + (2 * g if b == 1 else b + g))
+        b_ms, b_by = bound_ms(nbytes, 6.0 * b * g * k, str(dtype)[6:])
+        log(f"kernel sgl_prox ({label}): max_abs_err={err:.3e} "
+            f"tol={tol:g} (rtol = atol) ok={ok} zero_groups="
+            f"{int((got.reshape(-1, k).abs().sum(-1) == 0).sum())} ms={ms:.4f} "
+            f"loop_ms={loop:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} "
+            f"({b_by}) "
+            f"library_ms=none")
+        if not ok:
+            raise AssertionError(f"sgl_prox kernel disagrees with its plain "
+                                 f"version ({label})")
+        if record is None:
+            record = dict(
+                name="sgl_prox", route="cuda",
+                source="src/repro_torch/kernels/csrc/sgl_prox.cu",
+                replaces="src/repro/kernels/sgl_prox.py:68",
+                max_abs_err=err, ms=ms, loop_ms=loop, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return record
+
+
+def check_harness_cases() -> None:
+    """Each timing-harness case's kernel at the harness's own paper-scale
+    inputs against its plain version (the same wrapper on CPU copies), with
+    the tolerances of the checks above (``repro_torch.obs.timing``'s
+    ``close_*``).  Outside every counted run: these launches compare."""
+    from repro_torch.obs.timing import check_cases
+
+    t0 = time.perf_counter()
+    rows = check_cases(scale="paper")
+    for name, row in rows.items():
+        log(f"harness check {name}: max_abs_err={row['max_abs_err']:.3e} "
+            f"ok={row['ok']}")
+    log(f"harness check: cases={len(rows)} s={time.perf_counter() - t0:.2f}")
+    bad = [name for name, row in rows.items() if not row["ok"]]
+    if bad:
+        raise AssertionError(f"timing-harness kernels disagree with their "
+                             f"plain versions at the harness's inputs: {bad}")
+
+
+def run_timing_harness():
+    """The kernel-timing harness at the reference's paper shapes through the
+    port's entry point, with the launch counts zeroed before and read after
+    (the path that launches sgl_prox).  Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import _util
+    from repro_torch.obs.timing import CASES, measure_kernels
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = measure_kernels(scale="paper", warmup=3, repeat=50)
+    torch.cuda.synchronize()
+    counts = _util.launch_counts()
+    log(f"timing harness: scale=paper cases={len(rows)} "
+        f"s={time.perf_counter() - t0:.2f} launches={json.dumps(counts)}")
+    for name, row in rows.items():
+        a, ag = row["achieved"], row["achieved_graph"]
+        log(f"timing {name}: device={row['device']!r} median_ms="
+            f"{row['measured_s'] * 1e3:.4f} min_ms={row['min_s'] * 1e3:.4f} "
+            f"graph_ms={row['graph_s'] * 1e3:.4f} host_bound="
+            f"{row['host_bound']} model_flops={row['model_flops']:.4g} "
+            f"model_bytes={row['model_bytes']:.4g} bound_ms="
+            f"{max(a['model_t_compute_s'], a['model_t_memory_s']) * 1e3:.6f} "
+            f"({a['model_bottleneck']}) achieved_vs_model="
+            f"{a['achieved_vs_model']:.4g} graph_achieved_vs_model="
+            f"{ag['achieved_vs_model']:.4g} graph_frac_peak_memory="
+            f"{ag['frac_peak_memory']:.4g} graph_frac_peak_compute="
+            f"{ag['frac_peak_compute']:.4g} launch={json.dumps(row['launch'])}")
+    if [c.name for c in CASES] != list(rows) or any(
+            r["achieved"] is None or r["device"] == "cpu" for r in rows.values()):
+        raise AssertionError("timing harness rows missing or not on the card")
+    if counts["sgl_prox"] <= 0:
+        raise AssertionError("the timing harness never launched sgl_prox")
+    return counts
+
+
+def run_obs_gate():
+    """``python -m repro_torch.obs --check``'s passes, the smoke solve on the
+    card with the kernels; returns the launch counts of the gate's run."""
+    import torch
+    from repro_torch.kernels import _util
+    from repro_torch.obs import check
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    payload = check.run_check()
+    torch.cuda.synchronize()
+    counts = _util.launch_counts()
+    obs = payload["passes"]["obs"]
+    log(f"obs gate: ok={payload['ok']} summary={json.dumps(payload['summary'])}"
+        f" metrics_declared={obs['metrics_declared']} smoke_span_counts="
+        f"{json.dumps(obs['smoke_span_counts'])} launches={json.dumps(counts)}")
+    if not payload["ok"] or payload["summary"]["errors"]:
+        raise AssertionError(f"obs gate failed: {payload['findings']}")
+    if obs["smoke_span_counts"].get("kernel_launch", 0) <= 0:
+        raise AssertionError("obs gate: kernel_launch never fired")
+    return counts
+
+
+def run_traced(config, problem, untraced, untraced_wall):
+    """The path of ``config`` again with tracing on (every span recorded):
+    its betas must equal the untraced run's bit for bit.  Prints the span
+    counts, the per-site p50/p99, the host time per site in total and
+    exclusive of nested spans, and the traced over untraced wall-clock
+    (printed, not gated).  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.core import SGLSession, SolverConfig
+    from repro_torch.obs import trace
+
+    label = f"{config['name']} traced"
+    session = SGLSession(problem, SolverConfig(tol=config["tol"]))
+    trace.configure(enabled=True, sample_every=1, buffer=400_000)
+    trace.TRACER.reset()
+    try:
+        res, counts, wall = drive(label, session, untraced.lambdas,
+                                  config["kernels"], config["idle"])
+        spans = trace.TRACER.counts()
+        stages = trace.TRACER.stage_summary()
+        records = trace.TRACER.records()
+    finally:
+        trace.TRACER.reset()
+        trace.configure(enabled=False)
+    totals = {}
+    by_id = {r["span"]: r for r in records}
+    for r in records:
+        totals[r["name"]] = totals.get(r["name"], 0.0) + r["dur_s"]
+    own = dict(totals)
+    for r in records:
+        parent = by_id.get(r["parent"])
+        if parent is not None:
+            own[parent["name"]] -= r["dur_s"]
+    identical = bool(np.array_equal(res.betas, untraced.betas))
+    log(f"path {label}: span_counts={json.dumps(spans)} "
+        f"recorded={len(records)}")
+    for site, st in stages.items():
+        log(f"path {label} span {site}: n={st['n']} p50_ms={st['p50'] * 1e3:.4f}"
+            f" p99_ms={st['p99'] * 1e3:.4f} mean_ms={st['mean'] * 1e3:.4f} "
+            f"total_s={totals[site]:.4f} exclusive_s={own[site]:.4f}")
+    log(f"path {label}: betas_bit_identical={identical} wall_s={wall:.3f} "
+        f"untraced_wall_s={untraced_wall:.3f} traced_over_untraced="
+        f"{wall / untraced_wall:.4f}")
+    if not identical:
+        raise AssertionError(f"{label}: betas differ from the untraced run")
+    if len(records) != sum(spans.values()):
+        raise AssertionError(f"{label}: the span buffer dropped records")
+    return counts
 
 
 def check_synthetic_scores(problem, records) -> None:
@@ -442,7 +668,8 @@ def compare_masks(label, problem, res, pres, m, margins_at):
 def drive(label, session, lambdas, kernels=(), idle=()):
     """Solve ``lambdas`` through the session's path with every launch count
     zeroed just before and read just after; checks the outputs and that
-    ``kernels`` launched and ``idle`` did not.  Returns (result, counts)."""
+    ``kernels`` launched and ``idle`` did not.  Returns (result, counts,
+    wall-clock seconds)."""
     import numpy as np
     import torch
     from repro_torch.kernels import _util
@@ -485,7 +712,7 @@ def drive(label, session, lambdas, kernels=(), idle=()):
                                  f"{counts[name]} times off its path")
     if res.kernel_demotions != 0 or res.n_transpose_copies != 0:
         raise AssertionError(f"{label}: demotions or transposed copies")
-    return res, counts
+    return res, counts, wall
 
 
 def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at):
@@ -518,7 +745,8 @@ def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at):
 
 def run_path(config, problem):
     """Drive a GAP path with the kernels, then its leading lambdas with the
-    plain backends; returns the launch counts of the kernel run."""
+    plain backends; returns the launch counts, the result and the wall-clock
+    of the kernel run."""
     from repro_torch.core import SGLSession, SolverConfig
     from repro_torch.core.session import lambda_grid
 
@@ -530,8 +758,8 @@ def run_path(config, problem):
                           delta=config["delta"])[:config["solve"]]
     log(f"path {label}: T={config['T']} delta={config['delta']} "
         f"lam_max={session.lam_max:.6e}")
-    res, counts = drive(label, session, lambdas, config["kernels"],
-                        config["idle"])
+    res, counts, wall = drive(label, session, lambdas, config["kernels"],
+                              config["idle"])
     if not (res.gaps <= tol).all():
         raise AssertionError(f"{label}: gaps above tol {tol}: {res.gaps}")
     # A batch of up to batch_lambdas = 4 points starting near the end of a
@@ -545,7 +773,7 @@ def run_path(config, problem):
         return seq_margins(problem, beta_prev, float(lambdas[t]), loss)
 
     plain_rerun(label, problem, cfg, lambdas[:n_plain], res, m, margins_at)
-    return counts
+    return counts, res, wall
 
 
 def run_rules(config, problem):
@@ -578,8 +806,8 @@ def run_rules(config, problem):
                                  else ())
         idle = ("bcd_epoch_logistic",) + (() if rule == "static"
                                           else ("screening_scores",))
-        res, counts = drive(label, SGLSession(problem, cfg), lambdas,
-                            kernels, idle)
+        res, counts, _ = drive(label, SGLSession(problem, cfg), lambdas,
+                               kernels, idle)
         if not (res.gaps <= tol).all():
             raise AssertionError(f"{label}: gaps above tol {tol}: {res.gaps}")
         for k, v in counts.items():
@@ -600,7 +828,7 @@ def run_rules(config, problem):
                     config["plain"], margins_at)
     # The unsafe strong rule: its discards must be flagged, not certified.
     label = f"{config['name']}/strong"
-    res, counts = drive(label, SGLSession(problem, SolverConfig(
+    res, counts, _ = drive(label, SGLSession(problem, SolverConfig(
         tol=tol, rule="strong")), lambdas, LSQ_KERNELS,
         ("bcd_epoch_logistic", "screening_scores"))
     if res.certificates_safe:
@@ -657,6 +885,7 @@ def main() -> int:
         f"G={climate.G} ng={climate.ng} positives={int(y01.sum())} "
         f"setup_s={time.perf_counter() - t0:.2f}")
     records = check_kernels(climate, lam_max, y01, lam_max_logistic)
+    records["sgl_prox"] = check_prox(climate, lam_max)
 
     launches = {k: 0 for k in records}
 
@@ -664,20 +893,26 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
 
-    add(run_path(CLIMATE, climate))
-    add(run_path(CLIMATE_LOGISTIC, climate_logistic))
+    add(run_path(CLIMATE, climate)[0])
+    add(run_path(CLIMATE_LOGISTIC, climate_logistic)[0])
     del climate, climate_logistic
     torch.cuda.empty_cache()
+
+    check_harness_cases()
+    add(run_timing_harness())
+    add(run_obs_gate())
 
     X, y, _, sizes = make_synthetic()
     synthetic = make_problem(X, y, sizes, tau=SYNTHETIC["tau"])
     check_synthetic_scores(synthetic, records)
-    add(run_path(SYNTHETIC, synthetic))
+    counts, untraced, wall = run_path(SYNTHETIC, synthetic)
+    add(counts)
+    add(run_traced(SYNTHETIC, synthetic, untraced, wall))
     add(run_rules(SYNTHETIC_RULES, synthetic))
 
     kernels = [dict(records[k], launches=launches[k]) for k in
                ("corr", "dual_norm", "bcd_epoch", "screening_scores",
-                "bcd_epoch_logistic")]
+                "bcd_epoch_logistic", "sgl_prox")]
     log(f"whole script s={time.perf_counter() - T_START:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -32,8 +32,13 @@ least squares runs full certified rounds only and never batches lambdas,
 and a rule whose sphere is least-squares geometry is refused for it at
 construction.
 
-Not in this slice: the mesh strategy, solve budgets, fault injection and
-tracing.
+Tracing (:mod:`repro_torch.obs.trace`, off by default): the reference's
+spans ``path → lambda → round → epoch_block → kernel_launch`` at the same
+sites; ``kernel_launch`` wraps the dispatches on the ``"cuda"`` backend.  A
+span's attributes are values the host already holds: a span never reads a
+tensor back or synchronises the device.
+
+Not in this slice: the mesh strategy, solve budgets and fault injection.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..kernels._util import resolve_device
 from ..losses import Loss, resolve_loss
+from ..obs import trace as obs_trace
 from ..rules import ScreeningRule, resolve_rule
 
 __all__ = ["SolverConfig", "SGLSession", "PathResult", "lambda_grid"]
@@ -175,6 +181,14 @@ def _batch_reduced_gaps(Xt, fmask_b, bsub, resid, w, y, tau: float, lam_b,
     return primal - dual
 
 
+def _launch_span(backend: str):
+    """A ``kernel_launch`` span for dispatches on the ``"cuda"`` backend; the
+    plain backend gets the no-op singleton, so the span counts tally kernel
+    dispatches (the reference's ``_launch_span`` for ``"pallas"``)."""
+    return (obs_trace.span("kernel_launch") if backend == "cuda"
+            else obs_trace.NOOP)
+
+
 def _problem_to(problem: SGLProblem, device: torch.device) -> SGLProblem:
     return problem._replace(**{
         f: getattr(problem, f).to(device)
@@ -269,9 +283,13 @@ class SGLSession:
         self.full_rounds += 1
         self._rounds_since_full = 0
         self.round_flops += 4.0 * problem.n * problem.G * problem.ng
-        res, resid, terms = _screen_round(
-            problem, beta, lam_, lam_max, rule, self.backend, self.xt_pre,
-            loss=None if self.loss.name == "lsq" else self.loss)
+        with obs_trace.span("round") as _sp:
+            _sp.set("compact", False)
+            with _launch_span(self.backend):
+                res, resid, terms = _screen_round(
+                    problem, beta, lam_, lam_max, rule, self.backend,
+                    self.xt_pre,
+                    loss=None if self.loss.name == "lsq" else self.loss)
         if not np.isfinite(float(res.gap)):
             raise FloatingPointError(
                 f"non-finite certified duality gap at lambda={lam_:.6e}")
@@ -291,10 +309,13 @@ class SGLSession:
         xt_rows = None
         if self.backend == "cuda":
             xt_rows = caches.gather_xt_rows(problem, group_active, self.xt_pre)
-        gap, theta, g_keep, f_keep, valid = _screen_round_compact(
-            problem, Xt, take, gmask, beta, self._mask(feat_active),
-            self._mask(group_active), caches.ref_terms, caches.resid_ref,
-            lam_, self.backend, xt_rows)
+        with obs_trace.span("round") as _sp:
+            _sp.set("compact", True)
+            with _launch_span(self.backend):
+                gap, theta, g_keep, f_keep, valid = _screen_round_compact(
+                    problem, Xt, take, gmask, beta, self._mask(feat_active),
+                    self._mask(group_active), caches.ref_terms,
+                    caches.resid_ref, lam_, self.backend, xt_rows)
         self.round_flops += 4.0 * problem.n * Xt.shape[0] * problem.ng
         if not bool(valid):
             self.compact_fallbacks += 1
@@ -482,16 +503,20 @@ class SGLSession:
                 if self.solver_backend == "cuda":
                     xt_rows = caches.gather_xt_rows(problem, group_active,
                                                     self.xt_pre)
-                if lsq:
-                    beta, k_done, _ = _inner_rounds(
-                        Xt, Lg, w, problem.y, beta, self._mask(feat_active),
-                        take, gmask, tau, lam_, tol, check, max_blocks,
-                        self.solver_backend, xt_rows)
-                else:
-                    beta, k_done, _ = _inner_rounds_loss(
-                        Xt, Lg, w, problem.y, beta, self._mask(feat_active),
-                        take, gmask, tau, lam_, tol, self.loss, check,
-                        max_blocks, self.solver_backend, xt_rows)
+                with obs_trace.span("epoch_block"), \
+                        _launch_span(self.solver_backend):
+                    if lsq:
+                        beta, k_done, _ = _inner_rounds(
+                            Xt, Lg, w, problem.y, beta,
+                            self._mask(feat_active), take, gmask, tau, lam_,
+                            tol, check, max_blocks, self.solver_backend,
+                            xt_rows)
+                    else:
+                        beta, k_done, _ = _inner_rounds_loss(
+                            Xt, Lg, w, problem.y, beta,
+                            self._mask(feat_active), take, gmask, tau, lam_,
+                            tol, self.loss, check, max_blocks,
+                            self.solver_backend, xt_rows)
                 epochs_done += check * int(k_done)
                 if self.solver_backend == "cuda" and self._fused_epochs:
                     self.fused_epoch_launches += int(k_done)
@@ -505,27 +530,33 @@ class SGLSession:
                     if resid_nc is None:
                         resid_nc = problem.y - torch.einsum(
                             "gnk,gk->n", Xt_full, beta)
-                    if fused:
-                        beta_b, resid_b = kops.bcd_epochs_fused(
-                            Xt_full, Lg, problem.w, fmask[None], beta[None],
-                            resid_nc[None], tau, lam_b1, f_ce)
-                        beta, resid_nc = beta_b[0], resid_b[0]
-                    else:
-                        beta, resid_nc = bcd_epochs(
-                            Xt_full, Lg, problem.w, fmask, beta, resid_nc,
-                            tau, lam_, f_ce)
+                    with obs_trace.span("epoch_block"):
+                        if fused:
+                            with _launch_span("cuda"):
+                                beta_b, resid_b = kops.bcd_epochs_fused(
+                                    Xt_full, Lg, problem.w, fmask[None],
+                                    beta[None], resid_nc[None], tau, lam_b1,
+                                    f_ce)
+                            beta, resid_nc = beta_b[0], resid_b[0]
+                        else:
+                            beta, resid_nc = bcd_epochs(
+                                Xt_full, Lg, problem.w, fmask, beta,
+                                resid_nc, tau, lam_, f_ce)
                 else:
                     if z_nc is None:
                         z_nc = torch.einsum("gnk,gk->n", Xt_full, beta)
-                    if fused:
-                        beta_b, z_b = kops.bcd_epochs_fused(
-                            Xt_full, Lg, problem.w, fmask[None], beta[None],
-                            z_nc[None], tau, lam_b1, f_ce, y=problem.y)
-                        beta, z_nc = beta_b[0], z_b[0]
-                    else:
-                        beta, z_nc = bcd_epochs_loss(
-                            Xt_full, Lg, problem.w, fmask, beta, z_nc, tau,
-                            lam_, problem.y, self.loss, f_ce)
+                    with obs_trace.span("epoch_block"):
+                        if fused:
+                            with _launch_span("cuda"):
+                                beta_b, z_b = kops.bcd_epochs_fused(
+                                    Xt_full, Lg, problem.w, fmask[None],
+                                    beta[None], z_nc[None], tau, lam_b1,
+                                    f_ce, y=problem.y)
+                            beta, z_nc = beta_b[0], z_b[0]
+                        else:
+                            beta, z_nc = bcd_epochs_loss(
+                                Xt_full, Lg, problem.w, fmask, beta, z_nc,
+                                tau, lam_, problem.y, self.loss, f_ce)
                 if fused:
                     self.fused_epoch_launches += 1
                 epochs_done += f_ce
@@ -618,13 +649,15 @@ class SGLSession:
 
         step = 0
         while not done.all() and step < cfg.max_epochs:
-            if self.solver_backend == "cuda":
-                bsub, resid = kops.bcd_epochs_fused(
-                    Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
-                self.fused_epoch_launches += 1
-            else:
-                bsub, resid = kref.bcd_epochs_ref(
-                    Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
+            with obs_trace.span("epoch_block"), \
+                    _launch_span(self.solver_backend):
+                if self.solver_backend == "cuda":
+                    bsub, resid = kops.bcd_epochs_fused(
+                        Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
+                    self.fused_epoch_launches += 1
+                else:
+                    bsub, resid = kref.bcd_epochs_ref(
+                        Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
             step += block
             red = _batch_reduced_gaps(Xt, fm_b, bsub, resid, w, y, tau, lam_b,
                                       backend=self.solver_backend,
@@ -707,6 +740,16 @@ class SGLSession:
         ``sequential=False`` is the naive loop (fresh caches, no pre-solve
         round).  ``beta0``/``prev_epochs`` resume a path mid-grid.
         """
+        with obs_trace.span("path") as _sp:
+            _sp.set("T", T if lambdas is None else len(lambdas))
+            return self._solve_path_impl(
+                lambdas, T=T, delta=delta, sequential=sequential,
+                keep_results=keep_results, batch_lambdas=batch_lambdas,
+                beta0=beta0, prev_epochs=prev_epochs)
+
+    def _solve_path_impl(self, lambdas, *, T, delta, sequential,
+                         keep_results, batch_lambdas, beta0,
+                         prev_epochs) -> PathResult:
         cfg = self.config
         problem = self.problem
         rule = self.rule
@@ -802,8 +845,10 @@ class SGLSession:
                     else:
                         break
                 if len(certs) > 1:
-                    run = self._solve_batch_bcd(lambdas[t:t + len(certs)],
-                                                beta, certs, caches)
+                    with obs_trace.span("lambda") as _lsp:
+                        _lsp.set("t", t).set("batched", len(certs))
+                        run = self._solve_batch_bcd(
+                            lambdas[t:t + len(certs)], beta, certs, caches)
                     for j, res in enumerate(run):
                         record(t + j, res, certs[j],
                                n_groups - int(seq_scr[t + j]))
@@ -821,9 +866,11 @@ class SGLSession:
                 check_t = cfg.check_every
 
             lam_caches = caches if caches is not None else SolveCaches()
-            res = self.solve(lam_, beta0=beta, first_round=first_round,
-                             lam_max=lam_max, check_every=check_t,
-                             caches=lam_caches)
+            with obs_trace.span("lambda") as _lsp:
+                _lsp.set("t", t)
+                res = self.solve(lam_, beta0=beta, first_round=first_round,
+                                 lam_max=lam_max, check_every=check_t,
+                                 caches=lam_caches)
             beta = res.beta
             if caches is None:
                 n_gathers_total += lam_caches.n_gathers

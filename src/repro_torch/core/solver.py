@@ -37,7 +37,13 @@ from .sgl import SGLProblem
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..losses import Loss, resolve_loss
+from ..obs.metrics import REGISTRY
 from ..rules import RuleState, ScreeningRule, resolve_rule
+
+_M_GATHERS = REGISTRY.counter(
+    "solver.gathers",
+    help="Compacted gather-buffer rebuilds (certified active set shrank) "
+         "across all SolveCaches instances in the process")
 
 __all__ = [
     "SolveResult",
@@ -115,6 +121,7 @@ class SolveCaches:
             self.gather_val = _gather_static(problem, group_active)
             self.gather_key = key
             self.n_gathers += 1
+            _M_GATHERS.inc()
         return self.gather_val
 
     def gather_xt_rows(self, problem: SGLProblem, group_active: np.ndarray,

@@ -28,7 +28,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("corr", "dual_norm", "bcd_epoch", "screening_scores",
-           "bcd_epoch_logistic")
+           "bcd_epoch_logistic", "sgl_prox")
 # src/repro_torch/kernels/_build.py -> the checkout root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -1,19 +1,22 @@
 """Device predicates, launch geometry and launch counts for the CUDA kernels.
 
-Leaf module (imports nothing from this package), the counterpart of
-``repro/kernels/_util.py``: ``on_hopper`` replaces ``on_tpu`` /
-``default_interpret``, :class:`LaunchSpec` records the grid, block and
-shared memory every wrapper launches with (built by the kernel module's
-``*_launch_spec`` function and passed to the launch as is), and
-:class:`LaunchCounter` is the plain-integer count of launches a wrapper
-makes.  A counter moves only where its wrapper launches its kernel, so a run
-can show that a path went through the kernels.
+The counterpart of ``repro/kernels/_util.py`` (it imports only the leaf
+:mod:`repro_torch.obs.metrics` of this package): ``on_hopper`` replaces
+``on_tpu`` / ``default_interpret``, :class:`LaunchSpec` records the grid,
+block and shared memory every wrapper launches with (built by the kernel
+module's ``*_launch_spec`` function and passed to the launch as is), and
+:class:`LaunchCounter` counts the launches a wrapper makes, as the typed
+counter ``kernels.<name>_launches`` of the metrics registry.  A counter
+moves only where its wrapper launches its kernel, so a run can show that a
+path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
+
+from ..obs.metrics import REGISTRY
 
 __all__ = [
     "LaunchCounter",
@@ -22,6 +25,7 @@ __all__ = [
     "stream_handle",
     "LaunchSpec",
     "launch_counts",
+    "launch_metric_names",
     "on_hopper",
     "reset_launch_counts",
     "resolve_device",
@@ -59,17 +63,25 @@ class LaunchSpec(NamedTuple):
 
 
 class LaunchCounter:
-    """Plain-integer count of one kernel's launches."""
+    """One kernel's count of launches: the registry counter
+    ``kernels.<name>_launches``."""
 
-    __slots__ = ("name", "count")
+    __slots__ = ("name", "metric")
 
     def __init__(self, name: str) -> None:
         self.name = name
-        self.count = 0
+        self.metric = REGISTRY.counter(
+            f"kernels.{name}_launches",
+            help=f"Launches of the {name} CUDA kernel (counted by its "
+                 "wrapper where it launches, nowhere else)")
         _COUNTERS[name] = self
 
     def add(self) -> None:
-        self.count += 1
+        self.metric.inc()
+
+    @property
+    def count(self) -> int:
+        return self.metric.value
 
 
 _COUNTERS: Dict[str, LaunchCounter] = {}
@@ -80,22 +92,29 @@ def launch_counts() -> Dict[str, int]:
     return {name: c.count for name, c in _COUNTERS.items()}
 
 
-def reset_launch_counts(values: Optional[Dict[str, int]] = None) -> None:
-    """Set every count to 0, or to ``values[name]`` where given."""
-    for name, c in _COUNTERS.items():
-        c.count = 0 if values is None else values.get(name, 0)
+def launch_metric_names() -> Dict[str, str]:
+    """Kernel name -> the registry name of its launch counter."""
+    return {name: c.metric.name for name, c in _COUNTERS.items()}
 
 
-def check_operand(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
-    """Raise unless ``t`` is a contiguous f64 CUDA tensor of ``shape`` — the
-    only operands the CUDA kernels take."""
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    REGISTRY.reset(launch_metric_names().values())
+
+
+def check_operand(name: str, t: torch.Tensor, shape: Tuple[int, ...],
+                  dtype: torch.dtype = torch.float64) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
+    ``dtype`` — float64 for every kernel but ``sgl_prox``, which also takes
+    float32."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)!r}")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, "
                          f"got one on {t.device}")
-    if t.dtype != torch.float64:
-        raise TypeError(f"{name}: the CUDA kernel takes float64, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got "
+                        f"{t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

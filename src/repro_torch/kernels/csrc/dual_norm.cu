@@ -5,8 +5,11 @@
 //
 // Lambda is the positive root of g(nu) = sum_i S_{nu alpha}(x_i)^2 - (nu R)^2,
 // bracketed in [linf / (alpha + R), linf / alpha]; 64 halvings reach f64
-// roundoff.  The special cases are applied after the loop in the TPU
-// kernel's order: R == 0, then alpha == 0, then linf == 0.
+// roundoff.  The bisection runs on x / linf (a group whose entries all lie
+// below ~1e-154 or above ~1e154 would otherwise square to 0 or inf and
+// return the lower bracket whatever its shape) and the root is scaled back.
+// The special cases are applied after the loop in the TPU kernel's order:
+// R == 0, then alpha == 0, then linf == 0.
 //
 // Bound on this card: latency, not bytes (G = 10,512 groups of 7 is 589 KB
 // in).  The 64 steps form a dependent chain, so the design spreads the work
@@ -47,13 +50,19 @@ __global__ void dual_norm_kernel(const double* __restrict__ x,
   const double r = live ? R[g] : 1.0;
 
   const double linf = group_max(ax, width);
+  // Lambda is positively homogeneous in x: bisect on x / linf (entries in
+  // [0, 1]) and scale the root back, so no square of a tiny or huge entry
+  // underflows or overflows (the form of core.epsilon_norm.lam_bisect).
+  const double s = linf > 0.0 ? linf : 1.0;
+  const double xs = ax / s;
+  const double top = linf > 0.0 ? 1.0 : 0.0;
   const double safe_a = a > 0.0 ? a : 1.0;
   const double safe_R = r > 0.0 ? r : 1.0;
-  double lo = linf / (safe_a + safe_R);
-  double hi = linf / safe_a;
+  double lo = top / (safe_a + safe_R);
+  double hi = top / safe_a;
   for (int it = 0; it < n_iter; ++it) {
     const double mid = 0.5 * (lo + hi);
-    const double st = fmax(ax - mid * safe_a, 0.0);
+    const double st = fmax(xs - mid * safe_a, 0.0);
     const double mr = mid * safe_R;
     const double gv = group_sum(st * st, width) - mr * mr;
     if (gv > 0.0) {
@@ -62,8 +71,8 @@ __global__ void dual_norm_kernel(const double* __restrict__ x,
       hi = mid;
     }
   }
-  double nu = 0.5 * (lo + hi);
-  const double l2 = sqrt(group_sum(ax * ax, width));
+  double nu = 0.5 * (lo + hi) * s;
+  const double l2 = s * sqrt(group_sum(xs * xs, width));
   if (r == 0.0) nu = linf / safe_a;
   if (a == 0.0) nu = l2 / safe_R;
   if (linf == 0.0) nu = 0.0;

@@ -12,7 +12,8 @@ mask their own ragged edges, so the persistent transposed design is exactly
 Audit surface: :func:`audit_scope` opens a window on the count of
 on-the-fly transposed copies of the design (a session-driven path keeps it
 at 0, because every round reads the session's persistent copy) and on the
-kernels' launch counts.
+kernels' launch counts — all typed counters of
+:data:`repro_torch.obs.metrics.REGISTRY`, read through its ``scope``.
 """
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ from typing import Dict, Optional
 import torch
 
 from . import _util, ref
+from ..obs.metrics import REGISTRY, ScopeView
 from .bcd_epoch import bcd_epoch_cuda
 from .dual_norm import dual_norm_cuda
 from .screening_scores import screening_corr_cuda, screening_scores_cuda
+from .sgl_prox import sgl_prox_cuda
 
 __all__ = [
     "AuditCounters",
@@ -38,6 +41,8 @@ __all__ = [
     "screening_corr_grouped",
     "screening_scores",
     "sgl_dual_norm_terms_fused",
+    "sgl_prox",
+    "sgl_prox_batched",
     "transpose_copy_count",
     "transposed_design",
 ]
@@ -78,24 +83,20 @@ def prepare_transposed(X: torch.Tensor) -> torch.Tensor:
     return X.reshape(n, G * ng).T.contiguous()
 
 
-class _Count:
-    __slots__ = ("value",)
-
-    def __init__(self) -> None:
-        self.value = 0
-
-
-_TRANSPOSES = _Count()
+_M_TRANSPOSE = REGISTRY.counter(
+    "kernels.transpose_copies",
+    help="On-the-fly (p, n) transposed design copies (0 on session-driven "
+         "paths; see kernels.ops.transposed_design)")
 
 
 def transpose_copy_count() -> int:
-    return _TRANSPOSES.value
+    return _M_TRANSPOSE.value
 
 
 def transposed_design(X: torch.Tensor) -> torch.Tensor:
     """On-the-fly (p, n) transposed copy of a grouped design — COUNTED (the
     counted twin of :func:`prepare_transposed`)."""
-    _TRANSPOSES.value += 1
+    _M_TRANSPOSE.inc()
     return prepare_transposed(X)
 
 
@@ -162,50 +163,61 @@ def bcd_epochs_fused(Xt, Lg, w, fmask, beta, carry, tau, lam_b,
                           loss="logistic", y=y.contiguous())
 
 
+def sgl_prox(beta: torch.Tensor, step: torch.Tensor, w: torch.Tensor,
+             tau, lam) -> torch.Tensor:
+    """Fused two-level prox S^gp_{(1-tau) w lam step}(S_{tau lam step}(beta));
+    beta (G, ng), step/w (G,), f32 or f64.  Any G, ng."""
+    if _on_cpu(beta):
+        return ref.sgl_prox_ref(beta, step, w, tau, lam)
+    return sgl_prox_cuda(beta.contiguous(), step.contiguous(), w.contiguous(),
+                         float(tau), float(lam))
+
+
+def sgl_prox_batched(beta: torch.Tensor, lam_b: torch.Tensor, L, w: torch.Tensor,
+                     tau) -> torch.Tensor:
+    """Two-level prox over a batched-lambda state: beta (B, G, ng), lam_b
+    (B,), L a scalar or (B,), w (G,).  Each (b, g) row is an independent
+    prox at step lam_b[b] / L, so this is :func:`sgl_prox` over the
+    flattened (B * G, ng) view at lam = 1."""
+    B, G, ng = beta.shape
+    step = torch.as_tensor(lam_b / L, dtype=beta.dtype, device=beta.device)
+    step = torch.broadcast_to(step.reshape(-1)[:, None], (B, G)).reshape(-1)
+    w_flat = torch.broadcast_to(w[None, :], (B, G)).reshape(-1)
+    return sgl_prox(beta.reshape(B * G, ng), step, w_flat, tau,
+                    1.0).reshape(B, G, ng)
+
+
 class AuditCounters:
-    """Live view of the audit counters inside an :func:`audit_scope`; frozen
-    at the scope's exit so assertions after the ``with`` block still read
-    the in-scope values."""
+    """Window on the audit counters inside an :func:`audit_scope`: live
+    while the scope is open, frozen at its exit so assertions after the
+    ``with`` block still read the in-scope values."""
 
-    __slots__ = ("_frozen", "_transposes", "_launches")
+    __slots__ = ("_view", "_kernels")
 
-    def __init__(self) -> None:
-        self._frozen = False
-        self._transposes = 0
-        self._launches: Dict[str, int] = {}
+    def __init__(self, view: ScopeView, kernels: Dict[str, str]) -> None:
+        self._view = view
+        self._kernels = kernels
 
     @property
     def transpose_copies(self) -> int:
-        return self._transposes if self._frozen else _TRANSPOSES.value
+        return self._view[_M_TRANSPOSE.name]
 
     @property
     def launches(self) -> Dict[str, int]:
-        return dict(self._launches) if self._frozen else _util.launch_counts()
-
-    def _freeze(self) -> None:
-        self._transposes = _TRANSPOSES.value
-        self._launches = _util.launch_counts()
-        self._frozen = True
+        return {k: self._view[m] for k, m in self._kernels.items()}
 
 
 @contextlib.contextmanager
 def audit_scope():
     """Zero the transpose count and every kernel's launch count on entry,
     restore the surrounding values on exit (counts made inside the scope are
-    not propagated outward), and yield an :class:`AuditCounters`::
+    not propagated outward), and yield an :class:`AuditCounters` — a thin
+    veneer over ``REGISTRY.scope``::
 
         with ops.audit_scope() as audit:
             session.solve_path(...)
         assert audit.transpose_copies == 0
     """
-    saved_t = _TRANSPOSES.value
-    saved_l = _util.launch_counts()
-    _TRANSPOSES.value = 0
-    _util.reset_launch_counts()
-    counters = AuditCounters()
-    try:
-        yield counters
-    finally:
-        counters._freeze()
-        _TRANSPOSES.value = saved_t
-        _util.reset_launch_counts(saved_l)
+    kernels = _util.launch_metric_names()
+    with REGISTRY.scope((_M_TRANSPOSE.name, *kernels.values())) as view:
+        yield AuditCounters(view, kernels)

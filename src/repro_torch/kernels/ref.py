@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["CHUNK", "bcd_chunked", "bcd_epochs_logistic_ref", "bcd_epochs_ref",
-           "corr_ref", "dual_norm_ref", "screening_scores_ref"]
+           "corr_ref", "dual_norm_ref", "screening_scores_ref", "sgl_prox_ref"]
 
 
 def corr_ref(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -17,6 +17,16 @@ def corr_ref(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     if theta.dim() == 1:
         return Xt @ theta
     return theta @ Xt.T
+
+
+def sgl_prox_ref(beta: torch.Tensor, step: torch.Tensor, w: torch.Tensor,
+                 tau, lam) -> torch.Tensor:
+    """Two-level prox S^gp_{(1-tau) w lam step}(S_{tau lam step}(beta)),
+    grouped layout: beta (G, ng), step/w (G,) — the solver's own
+    :func:`repro_torch.core.sgl.sgl_prox`."""
+    from ..core.sgl import sgl_prox
+
+    return sgl_prox(beta, step, tau, w, lam)
 
 
 def dual_norm_ref(x: torch.Tensor, alpha: torch.Tensor,

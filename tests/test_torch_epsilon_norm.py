@@ -108,6 +108,21 @@ def test_pinned_reference_defect_inputs(x, alpha, R):
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
+def test_pinned_single_element_smallest_normal():
+    """The example hypothesis found against the reference's
+    ``test_property_single_element_group_closed_form`` (x = 2.2250738585072014e-308,
+    alpha = 0.5, R = 1): the reference's ``lam`` returns NaN, its
+    ``lam_bisect`` 0.0 and its ``kernels.ref.dual_norm_ref`` NaN.  The
+    port's three give the closed form |x| / (alpha + R)."""
+    from repro_torch.kernels import ref
+
+    x, alpha, R = 2.2250738585072014e-308, 0.5, 1.0
+    want = x / (alpha + R)
+    got = [float(lam(_t([x]), alpha, R)), float(lam_bisect(_t([x]), alpha, R)),
+           float(ref.dual_norm_ref(_t([[x]]), _t([alpha]), _t([R]))[0])]
+    np.testing.assert_allclose(got, [want] * 3, rtol=1e-9, atol=0)
+
+
 def test_pinned_epsilon_norm_of_one_entry():
     """Reference: epsilon_norm([5.], 1e-6) = 4.999999999866568 < 5 - 1e-10."""
     nu = float(epsilon_norm(_t([5.0]), 1e-6))

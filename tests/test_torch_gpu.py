@@ -7,7 +7,10 @@ tests/test_torch_gpu.py``.
 
 Tolerance: rtol 1e-12, atol 1e-12 in f64 — O(1) inputs, so only the
 different summation orders of the kernel and the plain version separate
-them; path masks are compared exactly.
+them (1e-5 for the prox kernel in f32, as the reference's kernel tests);
+path masks are compared exactly.  Also here: the observability layer on
+the card (the timing harness, the obs gate with a CUDA smoke, traced
+against untraced bits).
 """
 import numpy as np
 import pytest
@@ -23,6 +26,10 @@ from repro_torch.kernels.screening_scores import (
     screening_corr_cuda,
     screening_scores_cuda,
 )
+from repro_torch.kernels.sgl_prox import sgl_prox_cuda
+from repro_torch.obs import check as ocheck
+from repro_torch.obs import timing as otiming
+from repro_torch.obs import trace as otrace
 
 pytestmark = pytest.mark.gpu
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -57,6 +64,100 @@ def test_dual_norm_kernel_matches_plain(hopper):
         np.testing.assert_allclose(dual_norm_cuda(x, a, R).cpu().numpy(),
                                    ref.dual_norm_ref(x, a, R).cpu().numpy(),
                                    **TOL)
+
+
+@pytest.mark.parametrize("scale", [1e-170, 1e170])
+def test_dual_norm_kernel_is_scale_invariant(hopper, scale):
+    """Groups whose entries all lie far below or above 1: squared raw, they
+    underflow or overflow, and the bisection returned its lower bracket."""
+    rng = np.random.default_rng(2)
+    x = _t(rng.standard_normal((513, 7)) * scale, hopper)
+    a = _t(rng.uniform(0.05, 1.0, 513), hopper)
+    R = _t(rng.uniform(0.05, 1.0, 513), hopper)
+    np.testing.assert_allclose(dual_norm_cuda(x, a, R).cpu().numpy(),
+                               ref.dual_norm_ref(x, a, R).cpu().numpy(),
+                               rtol=1e-12, atol=0)
+
+
+PROX_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.float64: dict(rtol=1e-12, atol=1e-12)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G,ng", [(8, 8), (32, 10), (256, 7), (100, 16),
+                                  (512, 128), (33, 5), (4097, 1)])
+@pytest.mark.parametrize("tau", [0.0, 0.2, 1.0])
+def test_sgl_prox_kernel_matches_plain(hopper, G, ng, dtype, tau):
+    rng = np.random.default_rng(G * ng)
+    beta = torch.as_tensor(rng.standard_normal((G, ng))).to(hopper, dtype)
+    step = torch.as_tensor(rng.uniform(0.01, 2.0, G)).to(hopper, dtype)
+    w = torch.as_tensor(rng.uniform(0.5, 3.0, G)).to(hopper, dtype)
+    before = _util.launch_counts()["sgl_prox"]
+    got = sgl_prox_cuda(beta, step, w, tau, 0.7)
+    assert _util.launch_counts()["sgl_prox"] == before + 1
+    want = ref.sgl_prox_ref(beta, step, w, tau, 0.7)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **PROX_TOL[dtype])
+
+
+def test_sgl_prox_batched_and_empty_on_card(hopper):
+    rng = np.random.default_rng(5)
+    B, G, ng = 8, 1000, 7
+    beta = _t(rng.standard_normal((B, G, ng)), hopper)
+    lam_b = _t(np.linspace(0.1, 1.0, B), hopper)
+    w = _t(np.sqrt(ng) * np.ones(G), hopper)
+    got = ops.sgl_prox_batched(beta, lam_b, 3.0, w, 0.4)
+    want = ops.sgl_prox_batched(beta.cpu(), lam_b.cpu(), 3.0, w.cpu(), 0.4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+    before = _util.launch_counts()["sgl_prox"]
+    empty = _t(np.zeros((0, 7)), hopper)
+    assert sgl_prox_cuda(empty, empty[:, 0], empty[:, 0], 0.3, 1.0).shape == (0, 7)
+    assert _util.launch_counts()["sgl_prox"] == before
+
+
+def test_timing_harness_on_card(hopper):
+    rows = otiming.measure_kernels(scale="smoke", warmup=1, repeat=3)
+    assert len(rows) == len(otiming.CASES)
+    for row in rows.values():
+        assert row["device"] != "cpu" and row["achieved"] is not None
+        assert 0 < row["achieved"]["achieved_vs_model"]
+        assert row["graph_s"] > 0 and isinstance(row["host_bound"], bool)
+        assert 0 < row["achieved_graph"]["achieved_vs_model"]
+
+
+@pytest.mark.parametrize("scale", ["smoke", "paper"])
+def test_timing_harness_kernels_match_plain(hopper, scale):
+    """Every harness case's kernel at the harness's own inputs (at "paper":
+    bcd_epoch/bucket with ng = 16, n = 1,024 from a warm random beta)."""
+    rows = otiming.check_cases(scale=scale)
+    assert list(rows) == [c.name for c in otiming.CASES]
+    assert all(row["ok"] for row in rows.values()), rows
+
+
+def test_obs_check_with_a_cuda_smoke(hopper):
+    payload = ocheck.run_check()
+    assert payload["ok"], payload["findings"]
+    assert payload["passes"]["obs"]["smoke_span_counts"]["kernel_launch"] > 0
+
+
+def test_traced_kernel_path_is_bit_identical(hopper):
+    """No kernel uses atomics, so a span cannot change the bits unless it
+    changed the computation."""
+    X, y, _, sizes = make_climate_like(n=120, n_lon=6, n_lat=4)
+    prob = make_problem(X, y, sizes, tau=0.3)
+    cfg = SolverConfig(tol=1e-8)
+    off = SGLSession(prob, cfg).solve_path(T=8, delta=1.5)
+    otrace.configure(enabled=True, sample_every=1)
+    otrace.TRACER.reset()
+    try:
+        on = SGLSession(prob, cfg).solve_path(T=8, delta=1.5)
+        counts = otrace.TRACER.counts()
+    finally:
+        otrace.TRACER.reset()
+        otrace.configure(enabled=False)
+    np.testing.assert_array_equal(on.betas, off.betas)
+    assert counts["kernel_launch"] > 0 and counts["path"] == 1
 
 
 # The last case's beta (Gb * ng = 28,672 doubles) does not fit in shared

@@ -17,6 +17,8 @@ PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_path.py",
     ROOT / "tools" / "lambda_cost_torch.py",
+    ROOT / "tools" / "bcd_step_cost_torch.py",
+    ROOT / "tools" / "dual_norm_scale_probe.py",
     ROOT / "examples" / "quickstart_torch.py"]
 
 
@@ -44,6 +46,9 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import repro_torch.core, repro_torch.kernels.ops, repro_torch.convert\n"
         "import repro_torch.data, repro_torch.rules, repro_torch.losses\n"
+        "import repro_torch.obs, repro_torch.obs.check, repro_torch.obs.timing\n"
+        "import repro_torch.obs.export, repro_torch.launch.roofline\n"
+        "import repro_torch.analysis.findings, repro_torch.kernels.sgl_prox\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -57,8 +62,10 @@ def test_port_imports_with_jax_blocked():
 
 _LAUNCH_SITES = [PORT / "kernels" / f for f in
                  ("ops.py", "screening_scores.py", "dual_norm.py",
-                  "bcd_epoch.py", "bcd_epoch_logistic.py", "_build.py")] + [
+                  "bcd_epoch.py", "bcd_epoch_logistic.py", "sgl_prox.py",
+                  "_build.py")] + [
     PORT / "core" / "solver.py", PORT / "core" / "session.py",
+    PORT / "obs" / "timing.py", PORT / "obs" / "check.py",
     ROOT / "chip_smoke.py"]
 
 
