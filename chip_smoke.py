@@ -23,6 +23,14 @@ through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
   --check`` gate with a smoke solve on the card, and the synthetic path
   again with tracing on, which must give the untraced run's bits.
 
+corr and the two BCD kernels print their launch geometry (corr: the
+template's B, grid, rows per tile, ring stages; BCD: the cluster size,
+sample slices, ring stages) and are launched twice at the climate shapes:
+the two launches must give the same bits; the BCD kernels are held the
+same way at the synthetic path's buffers, from a warm start.  corr is
+timed beside ``torch.mv`` and, batched over B = 8, ``torch.mm``
+(``ms_b8``, ``library_ms_b8`` in its record), both from CUDA graphs.
+
 Every launch count is set to 0 just before each path and read just after;
 the leading lambdas of each path are solved again with the plain PyTorch
 backends on the card and must certify equal masks, and what a safe rule
@@ -154,10 +162,18 @@ def check_scores(label, Xt, center, tau, reps: int = 20):
 def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
               reps: int):
     """One BCD epoch kernel (``loss`` "lsq": residual carry, "logistic":
-    predictor carry with labels ``y``) against its plain version; returns
+    predictor carry with labels ``y``) against its plain version, and
+    against itself: a second launch on the same inputs must give the same
+    bits.  Prints the launch geometry (cluster, slices, ring); returns
     (max_abs_err, ms, loop_ms, plain_ms, bound_ms, bound_by)."""
+    import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec
+    from repro_torch.kernels.bcd_epoch import (
+        bcd_epoch_cuda,
+        bcd_epoch_geometry,
+        bcd_epoch_launch_spec,
+        bcd_epoch_max_active_clusters,
+    )
     from repro_torch.obs.timing import close_epochs
 
     name = "bcd_epoch" if loss == "lsq" else "bcd_epoch_logistic"
@@ -176,7 +192,10 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
                                            tau, lam_b, E)
 
     rb, rc = plain()
-    err, ok = close_epochs((), kernel(), (rb, rc))
+    got = kernel()
+    err, ok = close_epochs((), got, (rb, rc))
+    again = kernel()
+    same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     ms = graph_ms(kernel, reps)
     loop = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(plain, 1)
@@ -187,16 +206,26 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
     nbytes = 8.0 * (Gb * n * ng + 2 * Gb + 2 * B * Gb * ng + B + 2 * B * n
                     + B * Gb * ng + (n if y is not None else 0))
     b_ms, b_by = bound_ms(nbytes, 2.0 * B * E * live * n * ng)
-    in_smem = bcd_epoch_launch_spec(B, Gb, n, ng, loss)[1]
+    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
+    spec = bcd_epoch_launch_spec(B, Gb, n, ng, loss)[0]
     log(f"kernel {name} ({label}): B={B} Gb={Gb} live={live} n={n} ng={ng} "
-        f"E={E} beta_in_smem={int(in_smem)} max_abs_err={err:.3e} "
+        f"E={E} beta_in_smem={int(geo.beta_in_smem)} grid={spec.grid[0]} "
+        f"cluster={geo.cluster} slices={geo.slices[0]}..{geo.slices[-1]} "
+        f"ring_stages={geo.stages} stage_doubles={geo.stage} kmax={geo.kmax} "
+        f"smem_bytes={geo.smem_bytes} max_active_clusters="
+        f"{bcd_epoch_max_active_clusters(B, Gb, n, ng, loss)} "
+        f"max_abs_err={err:.3e} "
         f"tol=1e-10 relative to the largest entry ok={ok} "
+        f"bit_identical_relaunch={same} "
         f"nonzero={int((rb != 0).sum())} ms={ms:.4f} loop_ms={loop:.4f} "
         f"plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain "
                              f"version ({label})")
+    if not same:
+        raise AssertionError(f"{name} kernel gave other bits on a second "
+                             f"launch on the same inputs ({label})")
     return err, ms, loop, plain_ms, b_ms, b_by
 
 
@@ -210,7 +239,10 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     from repro_torch.core.solver import _gather_static
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dual_norm import dual_norm_cuda
-    from repro_torch.kernels.screening_scores import screening_corr_cuda
+    from repro_torch.kernels.screening_scores import (
+        corr_geometry,
+        screening_corr_cuda,
+    )
     from repro_torch.obs.timing import close_dot
 
     prob = climate_problem
@@ -220,28 +252,44 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     records = {}
 
     # corr: the full round's X^T resid over the persistent (p, n) design, and
-    # the batched form over B = 8 residuals.
+    # the batched form over B = 8 residuals; ms and library_ms both from CUDA
+    # graphs of 20 calls, so the pair compares device times.
     Xt = ops.prepare_transposed(prob.X)
     gen = torch.Generator(device=dev).manual_seed(0)
     theta = prob.y.clone()
     thetas = torch.randn((8, n), generator=gen, dtype=Xt.dtype, device=dev)
     for name, th in (("corr", theta), ("corr[B=8]", thetas)):
-        err, ok = close_dot((Xt, th), (screening_corr_cuda(Xt, th),),
-                            (ref.corr_ref(Xt, th),))
+        got = screening_corr_cuda(Xt, th)
+        err, ok = close_dot((Xt, th), (got,), (ref.corr_ref(Xt, th),))
+        same = torch.equal(got, screening_corr_cuda(Xt, th))
         B = 1 if th.dim() == 1 else th.shape[0]
+        geo = corr_geometry(p, n, B)
+
+        def library():
+            return torch.mv(Xt, th) if th.dim() == 1 else torch.mm(th, Xt.T)
+
         ms = graph_ms(lambda: screening_corr_cuda(Xt, th), 20)
+        lib = graph_ms(library, 20)
         loop = cuda_ms(lambda: screening_corr_cuda(Xt, th), 20)
         plain = cuda_ms(lambda: ref.corr_ref(Xt, th), 20)
-        lib = cuda_ms(lambda: torch.mv(Xt, th) if th.dim() == 1
-                      else torch.mm(th, Xt.T), 20)
+        lib_loop = cuda_ms(library, 20)
         b_ms, b_by = bound_ms(8.0 * (p * n + B * n + B * p), 2.0 * p * n * B)
-        log(f"kernel {name}: shape Xt ({p}, {n}) B={B} max_abs_err="
+        log(f"kernel {name}: shape Xt ({p}, {n}) B={B} instantiation=B{geo.B} "
+            f"grid={geo.grid} rows_per_tile={geo.rows} tiles={geo.tiles} "
+            f"ring_stages={geo.stages} theta_chunks={geo.n_chunks} "
+            f"smem_bytes={geo.smem_bytes} max_abs_err="
             f"{err:.3e} tol=2*n*u*(|Xt|@|theta|) ok={ok} "
+            f"bit_identical_relaunch={same} "
             f"ms={ms:.4f} loop_ms={loop:.4f} plain_ms={plain:.4f} "
-            f"torch.mv/mm_ms={lib:.4f} "
+            f"torch.{'mv' if B == 1 else 'mm'}_ms={lib:.4f} "
+            f"torch.{'mv' if B == 1 else 'mm'}_loop_ms={lib_loop:.4f} "
+            f"kernel_over_library={ms / lib:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
         if not ok:
             raise AssertionError(f"{name} kernel disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"{name} kernel gave other bits on a second "
+                                 "launch on the same inputs")
         if name == "corr":
             records["corr"] = dict(
                 name="corr", route="cuda",
@@ -249,6 +297,11 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
                 replaces="src/repro/kernels/screening_scores.py:156",
                 max_abs_err=err, ms=ms, loop_ms=loop, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        else:
+            records["corr"].update(max_abs_err=max(records["corr"]["max_abs_err"],
+                                                   err),
+                                   ms_b8=ms, library_ms_b8=lib,
+                                   bound_ms_b8=b_ms)
 
     # dual_norm: the full round's per-group Omega^D terms at X^T y.
     corr = ops.screening_corr_grouped(prob.X, prob.y, xt_pre=Xt)
@@ -585,6 +638,55 @@ def check_synthetic_scores(problem, records) -> None:
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
 
+def check_synthetic_bcd(problem, records) -> None:
+    """Both BCD kernels at the synthetic path's buffers: Gb = 128 slots of
+    10 features at n = 100 (a smaller cluster than at the climate width),
+    for one lambda (the path's commonest launch) and for the batched B = 4,
+    10 epochs from a warm beta (10 plain epochs at lambdas 20% above), so
+    that groups move.  Each against its plain version and a second launch
+    (check_bcd); their errors join the kernels' records."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sgl
+    from repro_torch.kernels import ref
+    from repro_torch.losses import resolve_loss
+
+    prob = problem
+    dev = prob.device
+    Gb, E = 128, 10
+    y01 = (prob.y > prob.y.median()).to(prob.y.dtype)
+    lmax_logistic = float(sgl.lambda_max_loss(prob._replace(y=y01),
+                                              resolve_loss("logistic")))
+    cases = (("lsq", "bcd_epoch", prob.y, None, float(sgl.lambda_max(prob))),
+             ("logistic", "bcd_epoch_logistic", y01 - 0.5, y01,
+              lmax_logistic))
+    for loss, name, rho0, y_arg, lmax in cases:
+        terms = sgl.sgl_dual_norm_terms(
+            torch.einsum("ngk,n->gk", prob.X, rho0), prob.tau, prob.w)
+        take = torch.topk(terms, Gb).indices
+        Xg = prob.X.index_select(1, take).permute(1, 0, 2).contiguous()
+        Lg, w = prob.Lg[take].contiguous(), prob.w[take].contiguous()
+        for B in (1, 4):
+            lam_b = torch.linspace(0.3, 0.2, B, dtype=Xg.dtype,
+                                   device=dev) * lmax
+            fmask = torch.ones((B, Gb, prob.ng), dtype=Xg.dtype, device=dev)
+            beta0 = torch.zeros((B, Gb, prob.ng), dtype=Xg.dtype, device=dev)
+            if loss == "lsq":
+                beta, carry = ref.bcd_epochs_ref(
+                    Xg, Lg, w, fmask, beta0, prob.y[None].repeat(B, 1),
+                    prob.tau, 1.2 * lam_b, E)
+            else:
+                beta, carry = ref.bcd_epochs_logistic_ref(
+                    Xg, Lg, w, fmask, beta0,
+                    torch.zeros((B, prob.n), dtype=Xg.dtype, device=dev),
+                    y_arg, prob.tau, 1.2 * lam_b, E)
+            err = check_bcd(f"synthetic B={B} Gb={Gb}, warm", loss, Xg, Lg,
+                            w, fmask, lam_b, prob.tau, beta.contiguous(),
+                            carry.contiguous(), y_arg, E, 10)[0]
+            rec = records[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+
 def theorem1_margins(problem, c, r):
     """Relative distance of every group's and feature's Theorem-1 statistic
     from its threshold, for correlations ``c = X^T center`` and radius ``r``
@@ -905,6 +1007,7 @@ def main() -> int:
     X, y, _, sizes = make_synthetic()
     synthetic = make_problem(X, y, sizes, tau=SYNTHETIC["tau"])
     check_synthetic_scores(synthetic, records)
+    check_synthetic_bcd(synthetic, records)
     counts, untraced, wall = run_path(SYNTHETIC, synthetic)
     add(counts)
     add(run_traced(SYNTHETIC, synthetic, untraced, wall))

@@ -54,12 +54,14 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
 
 
 class LaunchSpec(NamedTuple):
-    """Geometry of one kernel launch, exactly as handed to the launcher."""
+    """Geometry of one kernel launch, exactly as handed to the launcher
+    (``cluster``: the thread-block cluster's shape, (1, 1, 1) for none)."""
 
     name: str
     grid: Tuple[int, int, int]
     block: Tuple[int, int, int]
     smem_bytes: int = 0
+    cluster: Tuple[int, int, int] = (1, 1, 1)
 
 
 class LaunchCounter:

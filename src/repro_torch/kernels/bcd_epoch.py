@@ -6,17 +6,21 @@ Counterparts of ``repro/kernels/bcd_epoch.py::bcd_epoch_pallas`` and
 ``bcd_epoch_logistic_pallas``.  The kernels are ``csrc/bcd_epoch.cu``
 (residual carry) and ``csrc/bcd_epoch_logistic.cu`` (linear predictor
 carry z = X beta, with rho = y - sigmoid(z) beside it), two instantiations
-of one body, ``csrc/bcd_chunk.cuh``: one CTA per lambda, the carry (and
-beta where it fits) in shared memory for the whole launch, the epoch and
-group loops inside the CTA, up to 16 consecutive groups evaluated at once
-against the current carry up to the first one that changes (the chunk
-width adapts to how often groups change).  :func:`bcd_epoch_cuda` checks
-the operands, sizes the shared memory, launches and counts the launch of
-the kernel of the loss it is given.
+of one body, ``csrc/bcd_chunk.cuh``: one thread-block cluster of C CTAs
+per lambda, each CTA a contiguous slice of the samples with its slice of
+the carry in shared memory, the design streamed ahead into a shared-memory
+ring by bulk copies, up to 16 consecutive groups evaluated at once against
+the current carry (their partial gradients added over the cluster in rank
+order) up to the first one that changes.  :func:`bcd_epoch_geometry`
+chooses C, the slices, the ring and the shared memory from the shapes;
+:func:`bcd_epoch_cuda` checks the operands, launches and counts the launch
+of the kernel of the loss it is given.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,8 +33,9 @@ from ._util import (
     stream_handle,
 )
 
-__all__ = ["LAUNCHES", "LOGISTIC_LAUNCHES", "bcd_epoch_cuda",
-           "bcd_epoch_launch_spec"]
+__all__ = ["BcdGeometry", "LAUNCHES", "LOGISTIC_LAUNCHES", "bcd_epoch_cuda",
+           "bcd_epoch_geometry", "bcd_epoch_launch_spec",
+           "bcd_epoch_max_active_clusters"]
 
 LAUNCHES = LaunchCounter("bcd_epoch")
 LOGISTIC_LAUNCHES = LaunchCounter("bcd_epoch_logistic")
@@ -39,24 +44,110 @@ _KERNELS = {"lsq": ("bcd_epoch", 1, LAUNCHES),
             "logistic": ("bcd_epoch_logistic", 2, LOGISTIC_LAUNCHES)}
 BLOCK = 512                 # 16 warps: 1 to 16 groups per chunk
 MAX_NG = 32                 # one lane per feature in the prox step
+MAX_K = 16                  # groups per chunk
+MAX_CLUSTER = 16            # CTAs per lambda (a non-portable cluster size)
+# C from the card's readings (tools/bcd_step_cost_torch.py, PERF.md): an
+# H100 holds 7 clusters of 16 CTAs at once (15 of 8), so B * C <= 64 keeps
+# every lambda's cluster resident (B = 8 with C = 16 took twice C = 8's
+# time); at the widths timed a smaller slice was faster (n = 100: C = 4,
+# slices of 25, beat C = 2 and C = 1; n = 814: C = 16 beat 8 and 4), and no
+# slice under 25 samples was timed.
+CLUSTER_SMS = 64            # B * C at most
+MIN_SLICE = 25              # samples per CTA below which C stops growing
+RING_MIN = 8                # fewer stages than this: read the design directly
+RING_PREF = 16              # stages beta in shared memory must leave
+RING_MAX = 64
 SMEM_LIMIT = 232_448        # bytes of shared memory a block may use (H100)
+
+
+class BcdGeometry(NamedTuple):
+    """One BCD launch: ``cluster`` CTAs per lambda, CTA r holding samples
+    ``slices[r] = (j0, j1)``; ``stages`` ring stages of ``stage`` doubles
+    (0: the design is read from global memory directly); chunks of at most
+    ``kmax`` groups; beta in shared memory or not; the bytes of shared
+    memory per CTA (the layout of ``bcd_chunk.cuh``'s ``Layout``)."""
+
+    cluster: int
+    slices: Tuple[Tuple[int, int], ...]
+    stages: int
+    stage: int
+    kmax: int
+    beta_in_smem: bool
+    smem_bytes: int
+
+
+def _r16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def _smem_bytes(carries: int, m_max: int, Gb: int, ng: int, stages: int,
+                stage: int, beta_in_smem: bool) -> int:
+    """``Layout::total`` of bcd_chunk.cuh: the exchange buffers, per-warp
+    partials, candidates, the pending beta_g and flags, the carry slice,
+    beta, the ring and its barriers."""
+    fixed = 8 * (2 * MAX_K * 32 + (BLOCK // 32) * 32 + 2 * MAX_K * 32)
+    fixed += 8 * 32 + 16                # the pending beta_g and its group
+    fixed += _r16(4 * MAX_K) + _r16(8 * carries * m_max)
+    beta = _r16(8 * Gb * ng) if beta_in_smem else 0
+    return fixed + beta + 8 * stages * stage + 8 * stages
+
+
+@functools.lru_cache(maxsize=256)
+def bcd_epoch_geometry(B: int, Gb: int, n: int, ng: int,
+                       loss: str = "lsq") -> BcdGeometry:
+    """The launch of the ``loss`` BCD kernel for B lambdas over a (Gb, n, ng)
+    buffer, from the shapes alone (never from a failed launch).
+
+    C is the largest power of two up to 16 with B * C <= 64 and at least
+    25 samples per CTA; CTA r owns samples [r n / C, (r + 1) n / C).  A ring
+    stage holds one group's slice (the 16-byte granules that hold it: two
+    doubles more).  beta lives in shared memory when it fits beside a ring
+    of 16 stages (or the most that fit without it); the ring takes the
+    rest, up to 64 stages; chunks hold at most half the ring.  A ring under
+    8 stages is dropped and the kernel reads the design directly.  Raises
+    when even the carry slice does not fit: the limit on n grows with C."""
+    name, carries, _ = _KERNELS[loss]
+    C = 1
+    while (2 * C <= MAX_CLUSTER and B * 2 * C <= CLUSTER_SMS
+           and n // (2 * C) >= MIN_SLICE):
+        C *= 2
+    m_max = -(-n // C) if n else 0
+    slices = tuple((r * n // C, (r + 1) * n // C) for r in range(C))
+    stage = (m_max * ng + (m_max * ng & 1)) + 2     # + the granule shift
+
+    def stages_left(in_smem: bool) -> int:
+        free = SMEM_LIMIT - _smem_bytes(carries, m_max, Gb, ng, 0, stage,
+                                        in_smem)
+        return max(0, free // (8 * stage + 8))
+
+    base = _smem_bytes(carries, m_max, Gb, ng, 0, stage, False)
+    if base > SMEM_LIMIT:
+        raise ValueError(
+            f"n = {n} samples do not fit the {name} kernel's shared-memory "
+            f"carry: a slice of {m_max} samples over a cluster of {C} CTAs "
+            f"needs {base} > {SMEM_LIMIT} B; the limit grows with the "
+            f"cluster size (up to {MAX_CLUSTER} CTAs while "
+            f"B * C <= {CLUSTER_SMS})")
+    in_smem = stages_left(True) >= min(RING_PREF, stages_left(False))
+    stages = min(RING_MAX, stages_left(in_smem))
+    if stages < RING_MIN:
+        stages = 0
+    kmax = MAX_K
+    while stages and kmax > stages // 2:
+        kmax //= 2
+    smem = _smem_bytes(carries, m_max, Gb, ng, stages, stage, in_smem)
+    return BcdGeometry(C, slices, stages, stage, kmax, in_smem, smem)
 
 
 def bcd_epoch_launch_spec(B: int, Gb: int, n: int, ng: int,
                           loss: str = "lsq"):
-    """``(LaunchSpec, beta_in_smem)``: shared memory holds the carried
-    vectors (the residual, or z and rho: n or 2n doubles), the per-warp
-    partial sums and candidates (beta_g and its step), plus beta when
-    Gb * ng fits."""
-    name, carries, _ = _KERNELS[loss]
-    base = (carries * n + 3 * (BLOCK // 32) * 32) * 8
-    if base > SMEM_LIMIT:
-        raise ValueError(f"n = {n} samples do not fit the {name} kernel's "
-                         f"shared-memory carry ({base} > {SMEM_LIMIT} B)")
-    with_beta = base + Gb * ng * 8
-    in_smem = with_beta <= SMEM_LIMIT
-    smem = with_beta if in_smem else base
-    return LaunchSpec(name, (B, 1, 1), (BLOCK, 1, 1), smem), in_smem
+    """``(LaunchSpec, beta_in_smem)`` of :func:`bcd_epoch_geometry`'s
+    launch: grid B * C in clusters of C, 512 threads."""
+    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
+    name = _KERNELS[loss][0]
+    return (LaunchSpec(name, (B * geo.cluster, 1, 1), (BLOCK, 1, 1),
+                       geo.smem_bytes, (geo.cluster, 1, 1)),
+            geo.beta_in_smem)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -67,12 +158,33 @@ def _lib(name: str) -> ctypes.CDLL:
         # The logistic entry takes the labels y after tau.
         y = [vp] if name == "bcd_epoch_logistic" else []
         launch.argtypes = ([vp, vp, vp, vp, vp, cd] + y
-                           + [vp, vp, vp, vp] + [ci] * 8 + [vp])
+                           + [vp, vp, vp, vp] + [ci] * 11 + [vp])
         launch.restype = ctypes.c_int
+        occ = getattr(lib, f"{name}_max_active_clusters")
+        occ.argtypes = [ci, ci]
+        occ.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ci]
         err.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(name: str, C: int, smem_bytes: int) -> int:
+    lib = _lib(name)
+    got = getattr(lib, f"{name}_max_active_clusters")(C, smem_bytes)
+    if got < 0:
+        raise_on_launch_error(lib, name, -got)
+    return got
+
+
+def bcd_epoch_max_active_clusters(B: int, Gb: int, n: int, ng: int,
+                                  loss: str = "lsq") -> int:
+    """How many of this launch's clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); the launch's B clusters run in
+    ceil(B / that) waves."""
+    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
+    return _active_clusters(_KERNELS[loss][0], geo.cluster, geo.smem_bytes)
 
 
 def bcd_epoch_cuda(Xt, Lg, w, fmask, lam_b, tau: float, beta, carry,
@@ -104,22 +216,30 @@ def bcd_epoch_cuda(Xt, Lg, w, fmask, lam_b, tau: float, beta, carry,
     check_operand("lam_b", lam_b, (B,))
     check_operand("beta", beta, (B, Gb, ng))
     check_operand("carry", carry, (B, n))
+    if Xt.data_ptr() % 16:
+        raise ValueError("Xt: the BCD kernels' bulk copies need a 16-byte "
+                         "aligned design")
     labels = []
     if loss == "logistic":
         check_operand("y", y, (n,))
         labels = [y.data_ptr()]
-    beta_out = torch.empty_like(beta)
     carry_out = torch.empty_like(carry)
     if B == 0:
-        return beta_out, carry_out
-    spec, in_smem = bcd_epoch_launch_spec(B, Gb, n, ng, loss)
+        return torch.empty_like(beta), carry_out
+    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
+    # beta kept in global memory is updated in place in the output.
+    beta_out = torch.empty_like(beta) if geo.beta_in_smem else beta.clone()
+    if _active_clusters(name, geo.cluster, geo.smem_bytes) < 1:
+        raise RuntimeError(f"{name}: a cluster of {geo.cluster} CTAs with "
+                           f"{geo.smem_bytes} B of shared memory each cannot "
+                           "run on this device")
     lib = _lib(name)
     code = getattr(lib, f"{name}_launch")(
         Xt.data_ptr(), Lg.data_ptr(), w.data_ptr(), fmask.data_ptr(),
         lam_b.data_ptr(), float(tau), *labels, beta.data_ptr(),
-        carry.data_ptr(), beta_out.data_ptr(), carry_out.data_ptr(), Gb, n,
-        ng, int(n_epochs), int(in_smem), spec.grid[0], spec.block[0],
-        spec.smem_bytes, stream_handle())
+        carry.data_ptr(), beta_out.data_ptr(), carry_out.data_ptr(), B, Gb,
+        n, ng, int(n_epochs), geo.cluster, geo.stages, geo.stage, geo.kmax,
+        int(geo.beta_in_smem), geo.smem_bytes, stream_handle())
     raise_on_launch_error(lib, name, code)
     counter.add()
     return beta_out, carry_out

@@ -15,26 +15,33 @@
 // group's gradient needs the predictor the previous groups left; bytes and
 // flops are far below the chain's latency.
 //
-// Design: bcd_epoch.cu's (one CTA per lambda, consecutive groups evaluated
-// in chunks of adaptive width against the current state and kept up to the
+// Design: bcd_epoch.cu's (one thread-block cluster per lambda, each CTA a
+// slice of the samples, the design streamed into a shared-memory ring,
+// consecutive groups evaluated in chunks of adaptive width against the
+// current state, summed over the cluster in rank order and kept up to the
 // first group that changes), instantiated from bcd_chunk.cuh with the
-// predictor carry.  Shared memory holds z and rho = y - sigmoid(z) (2n
-// doubles, against the residual's n); rho is recomputed only at the samples
-// a changed group moves, by the thread that moves them, so no extra barrier
-// and no extra pass.  That is exact: rho depends on z alone, and z changes
-// only where a group's beta changes, so every group reads the same rho as
-// the reference's fresh rho per group.  sigmoid is the stable two-branch
-// form in f64.
+// predictor carry.  Each CTA's shared memory holds its slices of z and
+// rho = y - sigmoid(z) (2 n / C doubles, against the residual's n / C);
+// rho is recomputed only at the samples a changed group moves, by the
+// thread that moves them, so no extra barrier and no extra pass.  That is
+// exact: rho depends on z alone, and z changes only where a group's beta
+// changes, so every group reads the same rho as the reference's fresh rho
+// per group.  sigmoid is the stable two-branch form in f64.
 #include "bcd_chunk.cuh"
 
 extern "C" int bcd_epoch_logistic_launch(
     const void* xt, const void* Lg, const void* w, const void* fmask,
     const void* lam, double tau, const void* y, const void* beta0,
-    const void* z0, void* beta, void* z, int Gb, int n, int ng, int n_epochs,
-    int beta_in_smem, int grid, int block, int smem_bytes, void* stream) {
+    const void* z0, void* beta, void* z, int B, int Gb, int n, int ng,
+    int n_epochs, int C, int S, int stage, int Kmax, int beta_in_smem,
+    int smem_bytes, void* stream) {
   return bcd_chunk_launch<true>(xt, Lg, w, fmask, lam, tau, y, beta0, z0, beta,
-                                z, Gb, n, ng, n_epochs, beta_in_smem, grid,
-                                block, smem_bytes, stream);
+                                z, B, Gb, n, ng, n_epochs, C, S, stage, Kmax,
+                                beta_in_smem, smem_bytes, stream);
+}
+
+extern "C" int bcd_epoch_logistic_max_active_clusters(int C, int smem_bytes) {
+  return bcd_chunk_max_active_clusters<true>(C, smem_bytes);
 }
 
 extern "C" const char* bcd_epoch_logistic_error_string(int code) {

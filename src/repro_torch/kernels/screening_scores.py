@@ -4,11 +4,15 @@ fused with the screening statistic S_tau(corr)^2.
 Counterparts of ``repro/kernels/screening_scores.py``:
 
 * :func:`screening_corr_cuda` replaces ``screening_corr_pallas``; its kernel
-  is ``csrc/corr.cu`` (one warp per design row, up to 8 residuals per
-  launch).  Batches wider than 8 are split into launches of at most 8.
+  is ``csrc/corr.cu``: a persistent matvec, one CTA per SM, whose design
+  tiles reach shared memory by bulk copies into a ring of mbarrier stages,
+  theta staged once per CTA, and up to 8 residuals per launch (the count a
+  template parameter of the kernel).  Batches wider than 8 are split into
+  launches of at most 8.  :func:`corr_geometry` chooses every size of the
+  launch from the shapes.
 * :func:`screening_scores_cuda` replaces ``screening_scores_pallas``; its
-  kernel is ``csrc/screening_scores.cu`` (corr.cu's row-per-warp matvec for
-  one vector, the soft-threshold applied by the lane that writes the row).
+  kernel is ``csrc/screening_scores.cu`` (one warp per design row, the
+  soft-threshold applied by the lane that writes the row).
 
 Each checks the operands, launches on PyTorch's current stream and counts
 the launch (see the sources for their bounds and designs).
@@ -16,6 +20,8 @@ the launch (see the sources for their bounds and designs).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,31 +34,117 @@ from ._util import (
     stream_handle,
 )
 
-__all__ = ["LAUNCHES", "SCORES_LAUNCHES", "corr_launch_spec",
-           "screening_corr_cuda", "screening_scores_cuda",
+__all__ = ["LAUNCHES", "SCORES_LAUNCHES", "CorrGeometry", "corr_geometry",
+           "corr_launch_spec", "screening_corr_cuda", "screening_scores_cuda",
            "screening_scores_launch_spec"]
 
 LAUNCHES = LaunchCounter("corr")
 SCORES_LAUNCHES = LaunchCounter("screening_scores")
-BLOCK = 256           # 8 warps, one design row each
-MAX_BATCH = 8         # residuals accumulated per launch (kMaxB in corr.cu)
+BLOCK = 256           # screening_scores: 8 warps, one design row each
+MAX_BATCH = 8         # residuals per corr launch (its template instances)
+CORR_BLOCK = 288      # corr: 8 consumer warps and a producer warp
+MAX_CHUNK = 4_096     # corr: widest column chunk at B = 1 (theta in smem)
+MAX_CHUNK_MMA = 1_024  # from B = 2 on: 8 warps x 32 blocks of 4 columns
+STAGE_BYTES = 80_000  # corr: target bytes of one ring stage
+MAX_STAGES = 4
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use (H100)
+H100_SMS = 132
 
 
-def corr_launch_spec(p: int, n: int, B: int) -> LaunchSpec:
+class CorrGeometry(NamedTuple):
+    """Every size of one corr launch over a (p, n) design and B residuals:
+    ``B`` is also the kernel's template instance; ``nc`` the column chunk
+    (theta's staged width; ``n_chunks`` of them cover n); ``rows`` design
+    rows per tile, ``tiles`` per chunk; ``stages`` the ring's depth; ``grid``
+    the persistent CTAs; ``smem_bytes`` theta's chunk, the ring and its
+    barriers."""
+
+    B: int
+    nc: int
+    n_chunks: int
+    rows: int
+    tiles: int
+    stages: int
+    grid: int
+    smem_bytes: int
+
+
+def _even(k: int) -> int:
+    return k + (k & 1)
+
+
+def _pitch(length: int) -> int:
+    """Doubles between rows in the corr kernel's shared memory: 16 m + 4."""
+    return length + ((4 - length) & 15)
+
+
+def corr_smem_bytes(B: int, nc: int, rows: int, stages: int) -> int:
+    """Shared memory of one corr CTA (``corr_smem_bytes`` in corr.cu):
+    theta's chunk, the ring, the tensor-core column shares (B >= 2), the
+    stages' full and empty barriers."""
+    ncp = _even(nc)
+    theta = _pitch(ncp) if B == 1 else 0       # B >= 2: in registers
+    shares = 2 * 8 * -(-rows // 8) * 64 if B >= 2 else 0
+    return (8 * (theta + stages * rows * _pitch(ncp + 2) + shares)
+            + 16 * stages)
+
+
+@functools.lru_cache(maxsize=256)
+def corr_geometry(p: int, n: int, B: int, sms: int = H100_SMS) -> CorrGeometry:
+    """The launch of :func:`screening_corr_cuda` over a (p, n) design and
+    1 <= B <= 8 residuals, from the shapes alone.  A column chunk holds at
+    most 4,096 columns at B = 1 (theta's chunk in shared memory) and 1,024
+    from B = 2 on (theta's fragments in registers); a staged row is the
+    chunk plus one granule of shift;
+    warps take RB = 2 rows from B = 3 on, so a tile aims at 8 * RB rows and
+    at least 3 stages; one CTA per SM, never more CTAs than tiles."""
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"corr launches take 1 to {MAX_BATCH} residuals, "
+                         f"got {B}")
+    nc = min(n, MAX_CHUNK if B == 1 else MAX_CHUNK_MMA)
+    if nc < n:
+        nc -= nc & 1
+    n_chunks = -(-n // nc)
+    pitch = 8 * _pitch(_even(nc) + 2)
+    rows = min(STAGE_BYTES // pitch,
+               max(8, p // (4 * sms)),    # >= 4 tiles per CTA if p allows
+               32 if B >= 2 else 1 << 30)  # <= 4 blocks of 8 (their shares)
+    if rows >= 8:
+        rows -= rows % 4                  # whole half-blocks of 4 rows
+    rows = max(1, min(rows, p))
+
+    def free(r: int) -> int:              # shared memory left for the ring
+        return SMEM_LIMIT - corr_smem_bytes(B, nc, r, 0) - 16 * MAX_STAGES
+
+    while rows > 1 and free(rows) < 2 * rows * pitch:
+        rows -= 4 if rows > 8 else 1
+    stages = max(2, min(MAX_STAGES, free(rows) // (rows * pitch)))
+    tiles = -(-p // rows)
+    return CorrGeometry(B, nc, n_chunks, rows, tiles, stages,
+                        max(1, min(tiles, sms)),
+                        corr_smem_bytes(B, nc, rows, stages))
+
+
+def corr_launch_spec(p: int, n: int, B: int, sms: int = H100_SMS) -> LaunchSpec:
     """Geometry of one launch over a (p, n) design and B <= 8 residuals."""
-    rows = BLOCK // 32
-    return LaunchSpec("corr", (-(-p // rows), 1, 1), (BLOCK, 1, 1), 0)
+    geo = corr_geometry(p, n, B, sms)
+    return LaunchSpec("corr", (geo.grid, 1, 1), (CORR_BLOCK, 1, 1),
+                      geo.smem_bytes)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("corr")
     if lib.corr_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.corr_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.corr_launch.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
         lib.corr_launch.restype = ctypes.c_int
         lib.corr_error_string.argtypes = [ci]
         lib.corr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def screening_corr_cuda(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -66,18 +158,23 @@ def screening_corr_cuda(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     B = th.shape[0]
     check_operand("Xt", Xt, (p, n))
     check_operand("theta", th, (B, n))
+    if Xt.data_ptr() % 16:
+        raise ValueError("Xt: the corr kernel's bulk copies need a 16-byte "
+                         "aligned design")
     out = torch.empty((B, p), dtype=Xt.dtype, device=Xt.device)
     if p == 0 or n == 0 or B == 0:
         out.zero_()
         return out[0] if single else out
     lib = _lib()
     stream = stream_handle()
+    sms = _sm_count(Xt.device)
     for b0 in range(0, B, MAX_BATCH):
         bc = min(MAX_BATCH, B - b0)
-        spec = corr_launch_spec(p, n, bc)
+        geo = corr_geometry(p, n, bc, sms)
         code = lib.corr_launch(Xt.data_ptr(), th[b0].data_ptr(),
-                               out[b0].data_ptr(), p, n, bc, spec.grid[0],
-                               spec.block[0], stream)
+                               out[b0].data_ptr(), p, n, bc, geo.nc,
+                               geo.rows, geo.stages, geo.grid,
+                               geo.smem_bytes, stream)
         raise_on_launch_error(lib, "corr", code)
         LAUNCHES.add()
     return out[0] if single else out

@@ -267,9 +267,10 @@ def measure_one(fn: Callable, args: tuple, warmup: int = 2, repeat: int = 5,
                 device=None,
                 clock: Callable[[], float] = time.perf_counter) -> dict:
     """Warm, then time ``repeat`` calls one by one; median/min in seconds.
-    On a CUDA ``device`` each call sits between its own pair of CUDA
-    events; on the CPU it is timed on ``clock``."""
-    dev = torch.device("cpu" if device is None else device)
+    The device resolves as the other entry points' do: the card unless the
+    caller names another.  On a CUDA ``device`` each call sits between its
+    own pair of CUDA events; on the CPU it is timed on ``clock``."""
+    dev = resolve_device(device)
     for _ in range(max(1, warmup)):
         fn(*args)
     n = max(1, repeat)

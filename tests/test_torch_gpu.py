@@ -19,10 +19,15 @@ import torch
 from repro_torch.core import SGLSession, SolverConfig, make_problem
 from repro_torch.data import make_climate_like
 from repro_torch.kernels import _util, ops, ref
-from repro_torch.kernels.bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec
+from repro_torch.kernels.bcd_epoch import (
+    bcd_epoch_cuda,
+    bcd_epoch_geometry,
+    bcd_epoch_launch_spec,
+)
 from repro_torch.kernels.bcd_epoch_logistic import bcd_epoch_logistic_cuda
 from repro_torch.kernels.dual_norm import dual_norm_cuda
 from repro_torch.kernels.screening_scores import (
+    corr_geometry,
     screening_corr_cuda,
     screening_scores_cuda,
 )
@@ -46,13 +51,46 @@ def _t(a, dev):
     return torch.as_tensor(np.array(a, np.float64)).to(dev)
 
 
-def test_corr_kernel_matches_plain(hopper):
-    rng = np.random.default_rng(0)
-    Xt = _t(rng.standard_normal((1001, 333)), hopper)
-    for th in (rng.standard_normal(333), rng.standard_normal((11, 333))):
-        th = _t(th, hopper)
-        np.testing.assert_allclose(screening_corr_cuda(Xt, th).cpu().numpy(),
-                                   ref.corr_ref(Xt, th).cpu().numpy(), **TOL)
+# B = 11 takes two launches (8 + 3); n = 333 and 5 are odd, so row starts
+# fall on odd doubles; p = 1,001 and 2,003 leave a ragged last tile; at
+# (300, 1,100, B 8) and (40, 9,000) theta's chunk holds only part of n.
+@pytest.mark.parametrize("p,n,B", [(1001, 333, 1), (1001, 333, 11),
+                                   (1001, 333, 3), (1001, 333, 8),
+                                   (2003, 814, 1), (2003, 814, 8),
+                                   (77, 5, 1), (77, 5, 3), (300, 1100, 8),
+                                   (40, 9000, 1), (10_000, 100, 4)])
+def test_corr_kernel_matches_plain(hopper, p, n, B):
+    rng = np.random.default_rng(p + n + B)
+    Xt = _t(rng.standard_normal((p, n)), hopper)
+    th = _t(rng.standard_normal(n) if B == 1 else
+            rng.standard_normal((B, n)), hopper)
+    geo = corr_geometry(p, n, min(B, 8))
+    assert geo.n_chunks == (-(-n // 1024) if (p, B) == (300, 8)
+                            else -(-n // 4096))
+    np.testing.assert_allclose(screening_corr_cuda(Xt, th).cpu().numpy(),
+                               ref.corr_ref(Xt, th).cpu().numpy(), **TOL)
+
+
+def test_corr_kernel_on_the_compact_rounds_gathered_rows(hopper):
+    """The compacted round's operand: rows of the persistent design gathered
+    for a few groups (padded slots alias group 0), small p, odd n."""
+    rng = np.random.default_rng(7)
+    G, ng, n = 300, 7, 333
+    Xt = _t(rng.standard_normal((G * ng, n)), hopper)
+    take = torch.tensor([5, 17, 0, 0, 299, 42, 0], device=hopper)
+    rows = ops.gather_transposed_rows(Xt, take, ng)
+    th = _t(rng.standard_normal(n), hopper)
+    got = ops.screening_corr(rows, th)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ref.corr_ref(rows, th).cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_corr_kernel_is_deterministic(hopper, B):
+    rng = np.random.default_rng(B)
+    Xt = _t(rng.standard_normal((20_000, 814)), hopper)
+    th = _t(rng.standard_normal((B, 814)), hopper)
+    assert torch.equal(screening_corr_cuda(Xt, th), screening_corr_cuda(Xt, th))
 
 
 def test_dual_norm_kernel_matches_plain(hopper):
@@ -160,32 +198,115 @@ def test_traced_kernel_path_is_bit_identical(hopper):
     assert counts["kernel_launch"] > 0 and counts["path"] == 1
 
 
-# The last case's beta (Gb * ng = 28,672 doubles) does not fit in shared
-# memory, so the kernel keeps it in global memory, as on the climate paths'
-# full-width buffers.
-@pytest.mark.parametrize("B,Gb,n,ng,frac", [(3, 12, 30, 7, 0.2),
-                                             (1, 700, 50, 10, 0.5),
-                                             (2, 64, 300, 32, 0.05),
-                                             (1, 4096, 200, 7, 0.3)])
-def test_bcd_kernel_matches_plain(hopper, B, Gb, n, ng, frac):
-    rng = np.random.default_rng(Gb)
-    Xt = rng.standard_normal((Gb, n, ng))
+# The BCD kernels' cases: n below (30: one CTA), at (50, 100: slices of 25
+# samples, the least the wrapper takes) and above a cluster slice (200,
+# 300, 814, 1,024: clusters of 8 to 16); ng from
+# 1 to 32; B 1 to 8; ``in_smem`` whether beta fits in shared memory beside
+# the ring (it does not for Gb * ng = 28,672, as on the climate paths'
+# full-width buffers, nor at ng = 16 and 32 with large slices); (8, 256,
+# 1,024, 32) leaves no room for a ring, so the kernel reads the design
+# directly.  The last two groups are inert and group 1's feature mask is all
+# zero.
+BCD_CASES = [(3, 12, 30, 7, 0.2, True), (1, 700, 50, 10, 0.5, True),
+             (2, 64, 300, 32, 0.05, True), (1, 4096, 200, 7, 0.3, False),
+             (1, 40, 30, 1, 0.3, True), (4, 100, 100, 7, 0.2, True),
+             (8, 64, 814, 16, 0.1, False), (1, 300, 1024, 32, 0.05, False),
+             (4, 256, 1024, 16, 0.1, True), (8, 256, 1024, 32, 0.1, False),
+             (1, 1024, 814, 7, 0.3, True), (4, 64, 1024, 1, 0.2, True)]
+
+
+def _bcd_case(rng, B, Gb, n, ng, frac, logistic):
+    Xt = rng.standard_normal((Gb, n, ng)) / (np.sqrt(n) if logistic else 1.0)
     Lg = np.einsum("gnk,gnk->g", Xt, Xt)
     Lg[-2:] = 0.0                                        # inert groups
     fmask = (rng.random((B, Gb, ng)) > 0.15).astype(np.float64)
+    fmask[:, 1] = 0.0                                    # a masked-out group
     beta = rng.standard_normal((B, Gb, ng)) * (rng.random((B, Gb, 1)) > 0.7)
+    beta[:, 1] = 0.5                 # moves to 0 in its first visit
+    return Xt, Lg, fmask, beta
+
+
+@pytest.mark.parametrize("B,Gb,n,ng,frac,in_smem", BCD_CASES)
+def test_bcd_kernel_matches_plain(hopper, B, Gb, n, ng, frac, in_smem):
+    rng = np.random.default_rng(Gb)
+    Xt, Lg, fmask, beta = _bcd_case(rng, B, Gb, n, ng, frac, False)
     y = rng.standard_normal(n)
     lam_max = np.abs(np.einsum("gnk,n->gk", Xt, y)).max()
     args = [_t(a, hopper) for a in (Xt, Lg, np.sqrt(ng) * np.ones(Gb), fmask)]
     lam_b = _t(np.linspace(frac, frac / 3, B) * lam_max, hopper)
     beta_t = _t(beta, hopper)
     resid = _t(np.repeat(y[None], B, 0), hopper)
-    assert bcd_epoch_launch_spec(B, Gb, n, ng)[1] == (Gb * ng < 20_000)
+    assert bcd_epoch_launch_spec(B, Gb, n, ng)[1] == in_smem
     kb, kr = bcd_epoch_cuda(*args, lam_b, 0.25, beta_t, resid, 5)
     rb, rr = ref.bcd_epochs_ref(*args, beta_t, resid, 0.25, lam_b, 5)
     np.testing.assert_allclose(kb.cpu().numpy(), rb.cpu().numpy(), **TOL)
     np.testing.assert_allclose(kr.cpu().numpy(), rr.cpu().numpy(), **TOL)
     assert torch.equal(kb[:, -2:], beta_t[:, -2:])
+    assert not kb[:, 1].any()
+
+
+@pytest.mark.parametrize("loss", ["lsq", "logistic"])
+@pytest.mark.parametrize("Gb", [256, 16_384])
+def test_bcd_kernels_are_deterministic(hopper, loss, Gb):
+    """Two launches on the same inputs at the climate width (n = 814, ng =
+    7, a cluster of 16 per lambda; beta in shared memory at Gb = 256, in
+    global memory at the full-width Gb = 16,384) give the same bits."""
+    rng = np.random.default_rng(3)
+    B = 4 if Gb == 256 else 1
+    Xt = _t(rng.standard_normal((Gb, 814, 7)) / np.sqrt(814), hopper)
+    Lg = (Xt * Xt).sum((1, 2))
+    fm = torch.ones((B, Gb, 7), dtype=Xt.dtype, device=hopper)
+    beta = torch.zeros((B, Gb, 7), dtype=Xt.dtype, device=hopper)
+    y = _t((rng.random(814) < 0.5).astype(np.float64), hopper)
+    carry = (y - 0.5)[None].repeat(B, 1).contiguous() if loss == "lsq" else \
+        torch.zeros((B, 814), dtype=Xt.dtype, device=hopper)
+    lam = _t(np.full(B, 0.02), hopper)
+    w = torch.full((Gb,), np.sqrt(7.0), dtype=Xt.dtype, device=hopper)
+    kw = dict(loss=loss, y=y if loss == "logistic" else None)
+    one = bcd_epoch_cuda(Xt, Lg, w, fm, lam, 0.4, beta, carry, 3, **kw)
+    two = bcd_epoch_cuda(Xt, Lg, w, fm, lam, 0.4, beta, carry, 3, **kw)
+    assert bcd_epoch_geometry(B, Gb, 814, 7, loss).cluster == 16
+    assert one[0].any()
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.mark.parametrize("loss", ["lsq", "logistic"])
+@pytest.mark.parametrize("Gb,live", [(64, 0), (64, 40), (4096, 3000)])
+def test_bcd_kernels_stop_at_the_last_live_group(hopper, loss, Gb, live):
+    """The sweep ends at the last live group (L_g > 0): buffers whose groups
+    from ``live`` on are inert, with one inert group among the live ones
+    too, and a buffer with no live group.  beta in shared memory at Gb = 64,
+    in global memory at Gb = 4,096.  The kernels agree with their plain
+    versions and every inert group keeps its beta bit for bit."""
+    rng = np.random.default_rng(Gb + live)
+    B, n, ng = 2, 100, 7
+    Xt = rng.standard_normal((Gb, n, ng)) / np.sqrt(n)
+    Lg = np.einsum("gnk,gnk->g", Xt, Xt)
+    Lg[live:] = 0.0
+    if live:
+        Lg[live // 2] = 0.0
+    beta = rng.standard_normal((B, Gb, ng)) * (rng.random((B, Gb, 1)) > 0.5)
+    y = (rng.random(n) < 0.5).astype(np.float64)
+    lam_max = np.abs(np.einsum("gnk,n->gk", Xt, y - 0.5)).max()
+    args = [_t(a, hopper) for a in (Xt, Lg, np.sqrt(ng) * np.ones(Gb),
+                                    np.ones((B, Gb, ng)))]
+    lam_b = _t(np.array([0.3, 0.1]) * lam_max, hopper)
+    beta_t, y_t = _t(beta, hopper), _t(y, hopper)
+    if loss == "lsq":
+        carry = _t(np.repeat(y[None], B, 0), hopper)
+        want = ref.bcd_epochs_ref(*args, beta_t, carry, 0.25, lam_b, 3)
+    else:
+        carry = _t(np.einsum("gnk,bgk->bn", Xt, beta), hopper)
+        want = ref.bcd_epochs_logistic_ref(*args, beta_t, carry, y_t, 0.25,
+                                           lam_b, 3)
+    got = bcd_epoch_cuda(*args, lam_b, 0.25, beta_t, carry, 3, loss=loss,
+                         y=y_t if loss == "logistic" else None)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
+    inert = args[1] <= 0
+    assert torch.equal(got[0][:, inert], beta_t[:, inert])
+    if live == 0:
+        assert torch.equal(got[1], carry)
 
 
 @pytest.mark.parametrize("p,n,tau", [(1001, 333, 0.4), (77, 5, 0.0)])
@@ -199,31 +320,26 @@ def test_screening_scores_kernel_matches_plain(hopper, p, n, tau):
     np.testing.assert_allclose(st2.cpu().numpy(), want_s.cpu().numpy(), **TOL)
 
 
-@pytest.mark.parametrize("B,Gb,n,ng,frac", [(2, 12, 30, 7, 0.2),
-                                             (1, 700, 50, 10, 0.5),
-                                             (3, 64, 300, 32, 0.05),
-                                             (1, 4096, 200, 7, 0.3)])
-def test_bcd_logistic_kernel_matches_plain(hopper, B, Gb, n, ng, frac):
+@pytest.mark.parametrize("B,Gb,n,ng,frac,in_smem", BCD_CASES + [
+    (2, 12, 30, 7, 0.2, True), (3, 64, 300, 32, 0.05, True)])
+def test_bcd_logistic_kernel_matches_plain(hopper, B, Gb, n, ng, frac,
+                                           in_smem):
     rng = np.random.default_rng(Gb + 1)
-    Xt = rng.standard_normal((Gb, n, ng)) / np.sqrt(n)
-    Lg = np.einsum("gnk,gnk->g", Xt, Xt)
-    Lg[-2:] = 0.0                                        # inert groups
-    fmask = (rng.random((B, Gb, ng)) > 0.15).astype(np.float64)
-    beta = rng.standard_normal((B, Gb, ng)) * (rng.random((B, Gb, 1)) > 0.7)
+    Xt, Lg, fmask, beta = _bcd_case(rng, B, Gb, n, ng, frac, True)
     y = (rng.random(n) < 0.5).astype(np.float64)
     z = np.einsum("gnk,bgk->bn", Xt, beta)
     lam_max = np.abs(np.einsum("gnk,n->gk", Xt, y - 0.5)).max()
     args = [_t(a, hopper) for a in (Xt, Lg, np.sqrt(ng) * np.ones(Gb), fmask)]
     lam_b = _t(np.linspace(frac, frac / 3, B) * lam_max, hopper)
     beta_t, z_t, y_t = _t(beta, hopper), _t(z, hopper), _t(y, hopper)
-    assert (bcd_epoch_launch_spec(B, Gb, n, ng, "logistic")[1]
-            == (Gb * ng < 20_000))              # the last case: beta global
+    assert bcd_epoch_launch_spec(B, Gb, n, ng, "logistic")[1] == in_smem
     kb, kz = bcd_epoch_logistic_cuda(*args, lam_b, 0.25, y_t, beta_t, z_t, 5)
     rb, rz = ref.bcd_epochs_logistic_ref(*args, beta_t, z_t, y_t, 0.25,
                                          lam_b, 5)
     np.testing.assert_allclose(kb.cpu().numpy(), rb.cpu().numpy(), **TOL)
     np.testing.assert_allclose(kz.cpu().numpy(), rz.cpu().numpy(), **TOL)
     assert torch.equal(kb[:, -2:], beta_t[:, -2:])
+    assert not kb[:, 1].any()
 
 
 def test_wrappers_check_dtype_and_contiguity(hopper):

@@ -17,13 +17,19 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _util, ops
-from repro_torch.kernels.bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec
+from repro_torch.kernels import bcd_epoch as kbcd
+from repro_torch.kernels.bcd_epoch import (
+    bcd_epoch_cuda,
+    bcd_epoch_geometry,
+    bcd_epoch_launch_spec,
+)
 from repro_torch.kernels.dual_norm import (
     dual_norm_cuda,
     dual_norm_launch_spec,
     group_width,
 )
 from repro_torch.kernels.screening_scores import (
+    corr_geometry,
     corr_launch_spec,
     screening_corr_cuda,
 )
@@ -169,8 +175,45 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("p", [1, 8, 73_584])
 def test_corr_launch_spec_covers_every_row(p):
     spec = corr_launch_spec(p, 814, 1)
-    rows_per_block = spec.block[0] // 32
-    assert spec.grid[0] * rows_per_block >= p > (spec.grid[0] - 1) * rows_per_block
+    geo = corr_geometry(p, 814, 1)
+    assert geo.tiles * geo.rows >= p > (geo.tiles - 1) * geo.rows
+    assert spec.grid == (min(geo.tiles, 132), 1, 1)
+    assert spec.block == (288, 1, 1) and spec.smem_bytes == geo.smem_bytes
+
+
+@pytest.mark.parametrize("B", range(1, 9))
+@pytest.mark.parametrize("p,n", [(73_584, 814), (10_000, 100), (1001, 333),
+                                 (77, 5), (300, 1100), (40, 9000)])
+def test_corr_geometry(p, n, B):
+    """B is the kernel's template instance; a column chunk holds at most
+    4,096 columns at B = 1, 1,024 from B = 2 on, and the chunks cover n; a staged row (the chunk plus its shift) keeps
+    every stage 16-byte aligned, 16 m + 4 doubles apart; the ring has 2 to
+    4 stages and fits one CTA; the tiles cover p."""
+    geo = corr_geometry(p, n, B)
+    assert geo.B == B
+    assert geo.nc <= (4096 if B == 1 else 1024)
+    assert geo.n_chunks == -(-n // geo.nc)
+    assert geo.nc == n or geo.nc % 2 == 0
+    assert 2 <= geo.stages <= 4 and geo.smem_bytes <= 232_448
+    ncp = geo.nc + geo.nc % 2
+    tp, pitch = ncp + (4 - ncp) % 16, ncp + 2 + (2 - ncp) % 16
+    assert tp % 16 == 4 and pitch % 16 == 4           # 16-byte aligned rows
+    shares = 2 * 8 * 64 * -(-geo.rows // 8) if B >= 2 else 0
+    theta = tp if B == 1 else 0              # B >= 2: in registers
+    assert geo.smem_bytes == 8 * (theta + geo.stages * geo.rows * pitch
+                                  + shares) + 16 * geo.stages
+    assert geo.tiles == -(-p // geo.rows) and geo.grid == min(geo.tiles, 132)
+    if geo.rows >= 8:
+        assert geo.rows % 4 == 0
+
+
+def test_corr_geometry_at_the_climate_shape():
+    one, eight = corr_geometry(73_584, 814, 1), corr_geometry(73_584, 814, 8)
+    assert (one.rows, one.stages, one.n_chunks, one.grid) == (12, 2, 1, 132)
+    assert (eight.rows, eight.stages, eight.n_chunks) == (12, 2, 1)
+    assert corr_geometry(300, 1100, 8).n_chunks == 2     # n > one chunk
+    with pytest.raises(ValueError, match="1 to 8"):
+        corr_geometry(10, 10, 9)
 
 
 @pytest.mark.parametrize("G,ng", [(1, 1), (10_512, 7), (33, 16), (5, 32)])
@@ -183,9 +226,72 @@ def test_dual_norm_launch_spec_covers_every_group(G, ng):
 
 def test_bcd_launch_spec_shared_memory():
     spec, in_smem = bcd_epoch_launch_spec(4, 256, 814, 7)
-    assert spec.grid == (4, 1, 1) and in_smem
-    assert spec.smem_bytes == (814 + 3 * 16 * 32 + 256 * 7) * 8
-    spec, in_smem = bcd_epoch_launch_spec(1, 8192, 814, 7)   # beta too big
-    assert not in_smem and spec.smem_bytes == (814 + 3 * 16 * 32) * 8
+    assert spec.grid == (4 * 16, 1, 1) and spec.cluster == (16, 1, 1)
+    assert in_smem and spec.block == (512, 1, 1)
+    # exchange, per-warp partials, candidates, the pending beta_g, flags;
+    # the carry slice (51 samples); beta; 64 ring stages (the slice, 51 * 7
+    # + 3 doubles) and their barriers
+    fixed = 8 * (2 * 16 * 32 + 16 * 32 + 2 * 16 * 32) + 8 * 32 + 16 + 64 + 416
+    stage = 360
+    assert spec.smem_bytes == fixed + 256 * 7 * 8 + 64 * (stage * 8 + 8)
+    spec, in_smem = bcd_epoch_launch_spec(1, 16_384, 814, 7)  # beta too big
+    assert not in_smem and spec.smem_bytes == fixed + 64 * (stage * 8 + 8)
     with pytest.raises(ValueError, match="shared-memory"):
-        bcd_epoch_launch_spec(1, 8, 40_000, 7)
+        bcd_epoch_launch_spec(1, 8, 16 * 40_000, 7)
+
+
+@pytest.mark.parametrize("loss", ["lsq", "logistic"])
+@pytest.mark.parametrize("B,Gb,n,ng", [
+    (1, 16_384, 814, 7), (4, 256, 814, 7), (4, 256, 1024, 16),
+    (1, 64, 2048, 8), (8, 256, 1024, 32), (8, 64, 814, 16), (3, 12, 30, 7),
+    (4, 1000, 100, 10), (1, 40, 30, 1), (2, 64, 300, 32), (100, 16, 814, 7),
+    (1, 8, 14_000, 7), (1, 300, 1024, 32), (5, 9, 333, 3)])
+def test_bcd_geometry(B, Gb, n, ng, loss):
+    """C: a power of two up to 16, B * C <= CLUSTER_SMS, slices of at least
+    MIN_SLICE samples (C = 1 below 2 MIN_SLICE), the largest such C; the slices cover every sample once, in rank order;
+    a ring stage holds the largest slice of a group and its 16-byte shift
+    and stays 16-byte aligned (an even number of doubles); chunks take at
+    most half the ring; the shared memory is the kernel's layout and fits."""
+    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
+    C = geo.cluster
+    assert C in (1, 2, 4, 8, 16) and (C == 1 or B * C <= kbcd.CLUSTER_SMS)
+    assert C == 1 or n // C >= kbcd.MIN_SLICE
+    assert (C == 16 or 2 * C * B > kbcd.CLUSTER_SMS
+            or n // (2 * C) < kbcd.MIN_SLICE)
+    assert len(geo.slices) == C and geo.slices[0][0] == 0
+    assert geo.slices[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(geo.slices, geo.slices[1:]))
+    m_max = max(j1 - j0 for j0, j1 in geo.slices)
+    assert m_max - min(j1 - j0 for j0, j1 in geo.slices) <= 1
+    assert geo.stage % 2 == 0 and geo.stage >= m_max * ng + 2
+    assert geo.stages == 0 or 8 <= geo.stages <= 64
+    assert geo.kmax in (1, 2, 4, 8, 16)
+    assert geo.stages == 0 or 2 * geo.kmax <= geo.stages
+    assert geo.smem_bytes <= kbcd.SMEM_LIMIT
+    carries = 2 if loss == "logistic" else 1
+    assert geo.smem_bytes == kbcd._smem_bytes(carries, m_max, Gb, ng,
+                                              geo.stages, geo.stage,
+                                              geo.beta_in_smem)
+
+
+def test_bcd_geometry_at_the_paths_shapes():
+    full = bcd_epoch_geometry(1, 16_384, 814, 7)
+    assert (full.cluster, full.stages, full.kmax) == (16, 64, 16)
+    assert not full.beta_in_smem
+    assert bcd_epoch_geometry(4, 1000, 100, 10).cluster == 4     # synthetic
+    assert bcd_epoch_geometry(1, 128, 100, 10).cluster == 4
+    assert bcd_epoch_geometry(8, 256, 814, 7).cluster == 8       # B C <= 64
+    assert bcd_epoch_geometry(3, 12, 30, 7).cluster == 1         # n < 50
+    assert bcd_epoch_geometry(1, 700, 50, 10).cluster == 2
+    assert bcd_epoch_geometry(8, 256, 1024, 32).stages == 0      # no ring
+
+
+def test_bcd_geometry_limit_grows_with_the_cluster():
+    """A carry slice that does not fit raises; n = 30,000 fits over a
+    cluster of 16 (B = 1) but not over one CTA (B = 100: no room for
+    clusters), and the message says the limit grows with C."""
+    assert bcd_epoch_geometry(1, 8, 30_000, 7).cluster == 16
+    with pytest.raises(ValueError, match="grows with the cluster"):
+        bcd_epoch_geometry(100, 8, 30_000, 7)
+    with pytest.raises(ValueError, match="do not fit"):
+        bcd_epoch_geometry(1, 8, 16 * 14_000, 7, "logistic")

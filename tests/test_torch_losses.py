@@ -254,12 +254,17 @@ def test_bcd_epochs_loss_matches_reference(name):
 
 def test_logistic_launch_geometry_and_shared_memory():
     spec, in_smem = bcd_epoch_launch_spec(4, 256, 814, 7, "logistic")
-    assert spec.grid == (4, 1, 1) and spec.block == (512, 1, 1) and in_smem
-    assert spec.smem_bytes == (2 * 814 + 3 * 16 * 32 + 256 * 7) * 8
+    assert spec.grid == (4 * 16, 1, 1) and spec.block == (512, 1, 1)
+    assert spec.cluster == (16, 1, 1) and in_smem
+    # the fixed buffers, z and rho for a slice of 51 samples, beta, and 64
+    # ring stages of 360 doubles with their barriers
+    fixed = 8 * (2 * 16 * 32 + 16 * 32 + 2 * 16 * 32) + 8 * 32 + 16 + 64
+    assert spec.smem_bytes == (fixed + 2 * 51 * 8 + 256 * 7 * 8
+                               + 64 * (360 * 8 + 8))
     _, in_smem = bcd_epoch_launch_spec(1, 16_384, 814, 7, "logistic")
     assert not in_smem
     with pytest.raises(ValueError, match="do not fit"):
-        bcd_epoch_launch_spec(1, 8, 14_000, 7, "logistic")
+        bcd_epoch_launch_spec(1, 8, 16 * 14_000, 7, "logistic")
 
 
 def test_rule_x_loss_gate():

@@ -448,8 +448,19 @@ def test_harness_tolerance_rejects_a_perturbed_output(name):
 
 def test_measure_one_uses_the_injected_clock_on_cpu():
     t = otiming.measure_one(lambda: None, (), warmup=1, repeat=3,
-                            clock=_fake_clock(0.5))
+                            device="cpu", clock=_fake_clock(0.5))
     assert t["samples"] == [0.5, 0.5, 0.5] and t["median_s"] == 0.5
+
+
+def test_measure_one_runs_on_the_card_unless_asked(monkeypatch):
+    """With no device given, measure_one resolves the card as every entry
+    point does, and raises where there is none: it never times a CUDA
+    wrapper's enqueue on the host clock."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        otiming.measure_one(lambda: calls.append(1), (), warmup=1, repeat=2)
+    assert calls == []
 
 
 def test_achieved_vs_peak_against_h100_peaks():
