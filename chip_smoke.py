@@ -5,9 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the six hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc`` (into ``build/torch_kernels/``), holds each kernel against its plain
-PyTorch version on the card at its paths' shapes, and drives the paths
+It builds the six hand-written CUDA kernels (and an empty one) from
+``src/repro_torch/kernels/csrc`` (into ``build/torch_kernels/``), holds
+each kernel against its plain PyTorch version on the card at its paths'
+shapes, and drives the paths
 through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
 
 * the least-squares GAP path on the paper's climate configuration at full
@@ -23,6 +24,12 @@ through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
   --check`` gate with a smoke solve on the card, and the synthetic path
   again with tracing on, which must give the untraced run's bits.
 
+dual_norm is held against its plain version through both entries (Lambda
+per group, and a round's whole Omega^D with its maximum per lambda, with and
+without a group mask) on tied, tiny and huge groups, and timed beside the
+Omega^D chain the parent commit's solver ran; sgl_prox also in its batched
+mode (B = 8 at the climate width); both beside the card's floor for one
+launch, an empty kernel from a CUDA graph (``csrc/noop.cu``).
 corr and the two BCD kernels print their launch geometry (corr: the
 template's B, grid, rows per tile, ring stages; BCD: the cluster size,
 sample slices, ring stages) and are launched twice at the climate shapes:
@@ -238,7 +245,6 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     from repro_torch.core import sgl
     from repro_torch.core.solver import _gather_static
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.dual_norm import dual_norm_cuda
     from repro_torch.kernels.screening_scores import (
         corr_geometry,
         screening_corr_cuda,
@@ -303,46 +309,8 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
                                    ms_b8=ms, library_ms_b8=lib,
                                    bound_ms_b8=b_ms)
 
-    # dual_norm: the full round's per-group Omega^D terms at X^T y.
-    corr = ops.screening_corr_grouped(prob.X, prob.y, xt_pre=Xt)
-    eps = sgl.epsilons(prob.tau, prob.w)
-    alpha, R = (1.0 - eps).contiguous(), eps.contiguous()
-    got = dual_norm_cuda(corr, alpha, R)
-    want = ref.dual_norm_ref(corr, alpha, R)
-    # 64 halvings of a bracket of relative width < 1 end within roundoff of
-    # the root; the plain version is the exact sorted form.  Both are a few
-    # ulps from the root, so the stated tolerance is 1e-12 relative.
-    err = (got - want).abs()
-    rel = float((err / want.abs().clamp(min=1e-300)).max())
-    ok = rel <= 1e-12
-    ms = graph_ms(lambda: dual_norm_cuda(corr, alpha, R), 50)
-    loop = cuda_ms(lambda: dual_norm_cuda(corr, alpha, R), 50)
-    plain = cuda_ms(lambda: ref.dual_norm_ref(corr, alpha, R), 10)
-    b_ms, b_by = bound_ms(8.0 * (G * ng + 3 * G), 64.0 * G * (4 * ng + 4))
-    log(f"kernel dual_norm: shape x ({G}, {ng}) max_abs_err={float(err.max()):.3e}"
-        f" max_rel_err={rel:.3e} tol=1e-12 relative ok={ok} ms={ms:.4f} "
-        f"loop_ms={loop:.4f} "
-        f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by})")
-    if not ok:
-        raise AssertionError("dual_norm kernel disagrees with its plain version")
-    # The same groups scaled far below and far above 1, where squares of the
-    # raw entries under- or overflow: the kernel bisects on x / ||x||_inf.
-    for scale in (1e-170, 1e170):
-        xs = corr * scale
-        got_s, want_s = dual_norm_cuda(xs, alpha, R), ref.dual_norm_ref(xs, alpha, R)
-        rel_s = float(((got_s - want_s).abs()
-                       / want_s.abs().clamp(min=1e-300)).max())
-        log(f"kernel dual_norm: groups scaled by {scale:g} max_rel_err="
-            f"{rel_s:.3e} tol=1e-12 relative ok={rel_s <= 1e-12}")
-        if not rel_s <= 1e-12:
-            raise AssertionError(f"dual_norm kernel disagrees with its plain "
-                                 f"version on groups scaled by {scale:g}")
-    records["dual_norm"] = dict(
-        name="dual_norm", route="cuda",
-        source="src/repro_torch/kernels/csrc/dual_norm.cu",
-        replaces="src/repro/kernels/dual_norm.py:87",
-        max_abs_err=float(err.max()), ms=ms, loop_ms=loop, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # dual_norm: both entries at the full round's X^T y (check_dual_norm).
+    records["dual_norm"] = check_dual_norm(prob, Xt)
 
     # The two BCD kernels, each at two shapes.  (a) B = 4 lambdas over the
     # 256 groups of largest correlation (with y, or with y - 1/2 for the
@@ -411,13 +379,191 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     return records
 
 
+def noop_launcher():
+    """A function that launches the empty kernel (``csrc/noop.cu``, built
+    with the others) once, one warp, on the current stream.  Not a kernel
+    of any path: nothing counts its launches."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._util import raise_on_launch_error, stream_handle
+
+    lib = _build.library("noop")
+    lib.noop_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.noop_launch.restype = ctypes.c_int
+    lib.noop_error_string.argtypes = [ctypes.c_int]
+    lib.noop_error_string.restype = ctypes.c_char_p
+
+    def launch():
+        raise_on_launch_error(lib, "noop", lib.noop_launch(1, 32,
+                                                           stream_handle()))
+
+    return launch
+
+
+def floor_ms(reps: int = 200) -> float:
+    """The card's floor for one launch: the empty kernel replayed ``reps``
+    times from a CUDA graph, ms per launch."""
+    return graph_ms(noop_launcher(), reps)
+
+
+def rel_err(got, want) -> float:
+    """Largest |got - want| / |want| over the finite entries of ``want``;
+    the non-finite entries must agree exactly (inf with inf, NaN with
+    NaN)."""
+    import torch
+
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin) or not torch.equal(
+            torch.isnan(got), torch.isnan(want)):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return float(((got - want).abs()[fin]
+                  / want.abs()[fin].clamp(min=1e-300)).max())
+
+
+def check_dual_norm(prob, Xt):
+    """Both entries of the dual-norm kernel against their plain versions at
+    the climate width (10,512 groups of 7), tolerance 1e-12 relative: the
+    kernel evaluates the plain version's closed form, and only the order of
+    its prefix sums differs.
+
+    Lambda (``dual_norm_cuda``) at the full round's X^T y, on the same groups
+    with tied entries and scaled by 1e-170 and 1e+170, and on a one-entry
+    group at the smallest normal double; Omega^D (``sgl_dual_norm_cuda``)
+    at B = 1 and, over four residuals, at B = 4 with a random mask, also at
+    both scales; its maxima equal the plain maxima within 1e-12.  Times both
+    entries and the Omega^D chain as the parent commit's solver ran it (the
+    eps ops, the Lambda kernel, a divide and a max) beside this one's single
+    launch, from CUDA graphs and in loops, with the launch floor.  Returns
+    the kernel's record."""
+    import torch
+    from repro_torch.core import sgl
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dual_norm import (
+        dual_norm_cuda,
+        dual_norm_work,
+        sgl_dual_norm_cuda,
+    )
+
+    dev = prob.device
+    G, ng, tau, w = prob.G, prob.ng, prob.tau, prob.w
+    corr = ops.screening_corr_grouped(prob.X, prob.y, xt_pre=Xt)
+    eps = sgl.epsilons(tau, w)
+    alpha, R = (1.0 - eps).contiguous(), eps.contiguous()
+    errs = {}
+
+    def lam_case(label, x, a=alpha, r=R):
+        got, want = dual_norm_cuda(x, a, r), ref.dual_norm_ref(x, a, r)
+        errs[f"lambda {label}"] = (rel_err(got, want),
+                                   float((got - want).abs().max()))
+
+    lam_case("climate", corr)
+    lam_case("ties", torch.round(4.0 * corr / corr.abs().amax()) / 4.0)
+    for scale in (1e-170, 1e170):
+        lam_case(f"scaled {scale:g}", corr * scale)
+    tiny = torch.full((1, 1), 2.2250738585072014e-308, dtype=corr.dtype,
+                      device=dev)
+    half, one = (torch.full((1,), v, dtype=corr.dtype, device=dev)
+                 for v in (0.5, 1.0))
+    lam_case("one entry at the smallest normal", tiny, half, one)
+    # ... whose Lambda is |x| / (alpha + R), a subnormal.
+    closed = torch.full((1,), 2.2250738585072014e-308 / 1.5,
+                        dtype=corr.dtype, device=dev)
+    errs["lambda one entry, closed form"] = (
+        rel_err(dual_norm_cuda(tiny, half, one), closed), 0.0)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    thetas = torch.randn((4, prob.n), generator=gen, dtype=corr.dtype,
+                         device=dev)
+    corr4 = ops.screening_corr_batched(Xt, thetas).reshape(4 * G, ng)
+    mask = torch.rand((G,), generator=gen, device=dev) > 0.3
+    for label, c, m, B in (("B=1", corr, None, 1),
+                           ("B=4 masked", corr4, mask, 4),
+                           ("B=4 ties", torch.round(2.0 * corr4) / 2.0, mask,
+                            4),
+                           ("B=4 scaled 1e-170", corr4 * 1e-170, None, 4),
+                           ("B=4 scaled 1e+170", corr4 * 1e170, mask, 4)):
+        terms, dmax = sgl_dual_norm_cuda(c, w, tau, m, B)
+        want_t, want_m = ref.sgl_dual_norm_ref(c, tau, w, m, B)
+        errs[f"omega_d {label} terms"] = (rel_err(terms, want_t),
+                                          float((terms - want_t).abs().max()))
+        errs[f"omega_d {label} max"] = (rel_err(dmax, want_m),
+                                        float((dmax - want_m).abs().max()))
+    for label, (rel, _) in errs.items():
+        log(f"kernel dual_norm ({label}): max_rel_err={rel:.3e} tol=1e-12 "
+            f"relative ok={rel <= 1e-12}")
+    bad = [label for label, (rel, _) in errs.items() if not rel <= 1e-12]
+    if bad:
+        raise AssertionError(f"dual_norm kernel disagrees with its plain "
+                             f"version: {bad}")
+
+    def chain_before():
+        e = sgl.epsilons(tau, w)
+        scale = sgl.group_weight_total(tau, w)
+        terms = dual_norm_cuda(corr.contiguous(), (1.0 - e).contiguous(),
+                               e.contiguous()) / scale
+        return terms.max()
+
+    def chain_after():
+        return sgl_dual_norm_cuda(corr, w, tau, None, 1)[1]
+
+    rel = rel_err(chain_after(), chain_before().reshape(1))
+    log(f"kernel dual_norm (omega_d, one launch against the parent's chain): "
+        f"max_rel_err={rel:.3e} tol=1e-12 relative ok={rel <= 1e-12}")
+    if not rel <= 1e-12:
+        raise AssertionError("dual_norm: the one-launch Omega^D disagrees "
+                             "with the chain it replaces")
+    times = {
+        "lambda": (lambda: dual_norm_cuda(corr, alpha, R)),
+        "omega_d B=1": chain_after,
+        "omega_d B=4 masked": (lambda: sgl_dual_norm_cuda(corr4, w, tau,
+                                                          mask, 4)),
+        "chain before": chain_before,
+    }
+    ms = {k: (graph_ms(f, 50), cuda_ms(f, 50)) for k, f in times.items()}
+    plain = cuda_ms(lambda: ref.dual_norm_ref(corr, alpha, R), 10)
+    plain_sgl = cuda_ms(lambda: ref.sgl_dual_norm_ref(corr, tau, w), 10)
+    floor = floor_ms()
+    flops, nbytes = dual_norm_work(G, ng)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    # Omega^D at B = 1: corr and w in, terms and the maximum out.
+    b_sgl, b_sgl_by = bound_ms(8.0 * (G * ng + 2 * G + 1), flops)
+    for k, (g_ms, l_ms) in ms.items():
+        log(f"kernel dual_norm timing ({k}): shape ({G}, {ng}) ms={g_ms:.4f} "
+            f"loop_ms={l_ms:.4f}")
+    log(f"kernel dual_norm: ms={ms['lambda'][0]:.4f} loop_ms="
+        f"{ms['lambda'][1]:.4f} plain_ms={plain:.4f} bound_ms={b_ms:.6f} "
+        f"({b_by}) omega_d_ms={ms['omega_d B=1'][0]:.4f} omega_d_loop_ms="
+        f"{ms['omega_d B=1'][1]:.4f} omega_d_plain_ms={plain_sgl:.4f} "
+        f"omega_d_bound_ms={b_sgl:.6f} ({b_sgl_by}) chain_before_ms="
+        f"{ms['chain before'][0]:.4f} chain_before_loop_ms="
+        f"{ms['chain before'][1]:.4f} launch_floor_ms={floor:.4f}")
+    return dict(
+        name="dual_norm", route="cuda",
+        source="src/repro_torch/kernels/csrc/dual_norm.cu",
+        replaces="src/repro/kernels/dual_norm.py:87",
+        max_abs_err=max(a for label, (_, a) in errs.items()
+                        if "scaled" not in label), ms=ms["lambda"][0],
+        loop_ms=ms["lambda"][1], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, omega_d_ms=ms["omega_d B=1"][0],
+        omega_d_loop_ms=ms["omega_d B=1"][1],
+        omega_d_b4_ms=ms["omega_d B=4 masked"][0],
+        omega_d_bound_ms=b_sgl, chain_before_ms=ms["chain before"][0],
+        chain_before_loop_ms=ms["chain before"][1], launch_floor_ms=floor)
+
+
 def check_prox(prob, lam_max: float):
     """sgl_prox against its plain version on the card: the timing harness's
     (4,096, 8) in f64 and f32, the climate problem's width (10,512, 7) at its
     real w and tau = 0.4 (a gradient step from 0 at lambda_max / 2), and the
-    batched wrapper over B = 8 lambdas at that width.  Tolerance: rtol = atol
-    = 1e-12 in f64 and 1e-5 in f32, as the reference's kernel tests.
-    Returns the record of the (4,096, 8) f64 case (the harness's shape)."""
+    batched mode over B = 8 lambdas at that width (one launch that forms the
+    steps).  Tolerance: rtol = atol = 1e-12 in f64 and 1e-5 in f32, as the
+    reference's kernel tests.  Each row prints its share of the byte bound
+    and the card's floor for one launch.  Returns the record of the
+    (4,096, 8) f64 case (the harness's shape), with the climate and batched
+    rows' times beside it; max_abs_err is the largest over all rows."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.sgl_prox import sgl_prox_cuda
@@ -459,6 +605,7 @@ def check_prox(prob, lam_max: float):
                                            w_b, prob.tau, 1.0).reshape(B, G, ng),
                   (G, ng, B)))
     record = None
+    floor = floor_ms()
     for label, dtype, kernel, plain, (g, k, b) in cases:
         got = kernel()
         err, ok = close_prox((), (got,), (plain(),))
@@ -475,8 +622,8 @@ def check_prox(prob, lam_max: float):
             f"tol={tol:g} (rtol = atol) ok={ok} zero_groups="
             f"{int((got.reshape(-1, k).abs().sum(-1) == 0).sum())} ms={ms:.4f} "
             f"loop_ms={loop:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} "
-            f"({b_by}) "
-            f"library_ms=none")
+            f"({b_by}) share_of_bound={b_ms / ms:.3f} launch_floor_ms="
+            f"{floor:.4f} library_ms=none")
         if not ok:
             raise AssertionError(f"sgl_prox kernel disagrees with its plain "
                                  f"version ({label})")
@@ -486,7 +633,14 @@ def check_prox(prob, lam_max: float):
                 source="src/repro_torch/kernels/csrc/sgl_prox.cu",
                 replaces="src/repro/kernels/sgl_prox.py:68",
                 max_abs_err=err, ms=ms, loop_ms=loop, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launch_floor_ms=floor)
+        elif b > 1:
+            record.update(ms_b8=ms, loop_ms_b8=loop, plain_ms_b8=plain_ms,
+                          bound_ms_b8=b_ms)
+        if dtype == torch.float64 and b == 1 and g == G:
+            record.update(ms_climate=ms, bound_ms_climate=b_ms)
+        record["max_abs_err"] = max(record["max_abs_err"], err)
     return record
 
 

@@ -8,9 +8,10 @@ the unique nu >= 0 solving
 and ``||x||_eps = Lambda(x, 1 - eps, eps)``.
 
 * :func:`lam` — the exact sorted prefix-sum algorithm (paper Algorithm 1),
-  batched over leading dimensions.
+  batched over leading dimensions; ``csrc/dual_norm.cu`` evaluates the same
+  arithmetic across a lane group per group.
 * :func:`lam_bisect` — fixed-iteration bisection on the monotone
-  g(nu) = sum S_{nu alpha}(x)^2 - (nu R)^2 (the CUDA kernel's form).
+  g(nu) = sum S_{nu alpha}(x)^2 - (nu R)^2 (the TPU kernel's form).
 
 Both are written scale-invariantly: Lambda is positively homogeneous in x,
 so each row is divided by its ||x||_inf before anything is squared and the

@@ -161,8 +161,8 @@ def _batch_reduced_gaps(Xt, fmask_b, bsub, resid, w, y, tau: float, lam_b,
     """Per-lambda reduced-problem duality gaps on a shared batch buffer —
     the batched twin of ``_inner_rounds``' early-exit heuristic (work
     scheduling only, never reported).  ``backend="cuda"`` runs the batched
-    correlation through the corr kernel over ``xt_rows`` and the dual-norm
-    terms through the dual-norm kernel."""
+    correlation through the corr kernel over ``xt_rows`` and every
+    lambda's dual norm through one dual-norm launch."""
     B = resid.shape[0]
     Gb, ng = Xt.shape[0], Xt.shape[2]
     if backend == "cuda" and xt_rows is not None:
@@ -170,8 +170,7 @@ def _batch_reduced_gaps(Xt, fmask_b, bsub, resid, w, y, tau: float, lam_b,
     else:
         corr = torch.einsum("gnk,bn->bgk", Xt, resid)
     corr = corr * fmask_b
-    dn = _dual_terms(corr.reshape(B * Gb, ng), tau, w.repeat(B),
-                     backend).reshape(B, Gb).amax(dim=-1)
+    dn = _dual_terms(corr.reshape(B * Gb, ng), tau, w, backend, B=B)[1]
     theta = resid / torch.maximum(lam_b, dn)[:, None]
     norm_b = (tau * bsub.abs().sum(dim=(1, 2))
               + (1.0 - tau) * (w * torch.linalg.vector_norm(bsub, dim=-1)).sum(-1))

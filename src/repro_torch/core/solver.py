@@ -213,10 +213,17 @@ def _corr_grouped(problem: SGLProblem, v: torch.Tensor, backend: str,
 
 
 def _dual_terms(corr: torch.Tensor, tau: float, w: torch.Tensor,
-                backend: str) -> torch.Tensor:
+                backend: str, mask: Optional[torch.Tensor] = None,
+                B: int = 1):
+    """Omega^D of B lambda segments of grouped correlations corr
+    (B * Gb, ng) against the shared weights w (Gb,): the per-group terms
+    (B * Gb,) and per segment the maximum of those whose group is set in
+    ``mask`` (Gb,) (0 for the others; every group without one), (B,).  The
+    one route of every Omega^D evaluation: on ``"cuda"`` a single dual-norm
+    launch, on ``"torch"`` the sorted form and a max."""
     if backend == "cuda":
-        return kops.sgl_dual_norm_terms_fused(corr, tau, w)
-    return sgl.sgl_dual_norm_terms(corr, tau, w)
+        return kops.sgl_dual_norm_terms_fused(corr, tau, w, mask, B)
+    return kref.sgl_dual_norm_ref(corr, tau, w, mask, B)
 
 
 def _screen_round(problem: SGLProblem, beta: torch.Tensor, lam_: float,
@@ -237,8 +244,8 @@ def _screen_round(problem: SGLProblem, beta: torch.Tensor, lam_: float,
     z = torch.einsum("ngk,gk->n", problem.X, beta)
     resid = problem.y - z if lsq else loss.neg_grad(problem.y, z)
     corr = _corr_grouped(problem, resid, backend, xt_pre)
-    terms = _dual_terms(corr, problem.tau, problem.w, backend)
-    scale = torch.clamp(terms.max(), min=lam_)
+    terms, dmax = _dual_terms(corr, problem.tau, problem.w, backend)
+    scale = torch.clamp(dmax[0], min=lam_)
     theta = resid / scale
     norm = sgl.sgl_norm(beta, problem.tau, problem.w)
     if lsq:
@@ -291,11 +298,9 @@ def _screen_round_compact(problem: SGLProblem, Xt, take, gmask, beta,
     corr = corr * gmask[:, None]          # padded slots alias group 0
 
     w_sub = problem.w[take]
-    terms_sub = _dual_terms(corr, tau, w_sub, backend)
     gact_sub = group_active[take] & (gmask > 0)
-    dual_active = torch.where(gact_sub, terms_sub,
-                              torch.zeros_like(terms_sub)).max()
-    scale = torch.clamp(dual_active, min=lam_)
+    dual_active = _dual_terms(corr, tau, w_sub, backend, mask=gact_sub)[1]
+    scale = torch.clamp(dual_active[0], min=lam_)
 
     real_grp = problem.feat_mask.any(dim=-1)
     screened = real_grp & ~group_active
@@ -374,8 +379,9 @@ def _inner_rounds(Xt, Lg, w, y, beta, feat_active, take, gmask, tau: float,
 
     ``backend="cuda"`` runs each block as one fused epoch-kernel launch, the
     reduced-gap correlation through the corr kernel over ``xt_rows`` and its
-    dual norm through the dual-norm kernel (the reference keeps the sorted
-    form there; eagerly, that form is ~40 small launches per check).
+    dual norm, terms and maximum, in one dual-norm launch (the reference
+    keeps the sorted form there; eagerly, that form is ~40 small launches
+    per check).
     Returns ``(beta, blocks_done, last_reduced_gap)``.
     """
     dtype = beta.dtype
@@ -392,7 +398,7 @@ def _inner_rounds(Xt, Lg, w, y, beta, feat_active, take, gmask, tau: float,
             corr = kops.screening_corr(xt_rows, resid).reshape(Gb, ng) * fmask
         else:
             corr = torch.einsum("gnk,n->gk", Xt, resid) * fmask
-        dn = _dual_terms(corr, tau, w, backend).max()
+        dn = _dual_terms(corr, tau, w, backend)[1][0]
         theta = resid / torch.clamp(dn, min=lam_)
         primal = 0.5 * (resid * resid).sum() + lam_ * sgl.sgl_norm(bsub, tau, w)
         diff = theta - y / lam_
@@ -444,7 +450,7 @@ def _inner_rounds_loss(Xt, Lg, w, y, beta, feat_active, take, gmask,
             corr = kops.screening_corr(xt_rows, rho).reshape(Gb, ng) * fmask
         else:
             corr = torch.einsum("gnk,n->gk", Xt, rho) * fmask
-        dn = _dual_terms(corr, tau, w, backend).max()
+        dn = _dual_terms(corr, tau, w, backend)[1][0]
         theta = rho / torch.clamp(dn, min=lam_)
         primal = loss.value(y, z) + lam_ * sgl.sgl_norm(bsub, tau, w)
         return primal - loss.dual_obj(y, theta, lam_)

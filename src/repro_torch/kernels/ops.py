@@ -25,9 +25,9 @@ import torch
 from . import _util, ref
 from ..obs.metrics import REGISTRY, ScopeView
 from .bcd_epoch import bcd_epoch_cuda
-from .dual_norm import dual_norm_cuda
+from .dual_norm import dual_norm_cuda, sgl_dual_norm_cuda
 from .screening_scores import screening_corr_cuda, screening_scores_cuda
-from .sgl_prox import sgl_prox_cuda
+from .sgl_prox import sgl_prox_batched_cuda, sgl_prox_cuda
 
 __all__ = [
     "AuditCounters",
@@ -123,21 +123,25 @@ def gather_transposed_rows(xt_pre: torch.Tensor, take: torch.Tensor,
 def dual_norm_groups(x: torch.Tensor, alpha: torch.Tensor,
                      R: torch.Tensor) -> torch.Tensor:
     """Per-group Lambda(x_g, alpha_g, R_g); x (G, ng), alpha/R (G,) -> (G,).
-    The plain version is the exact sorted form (paper Algorithm 1)."""
+    The plain version is the exact sorted form (paper Algorithm 1), which
+    the kernel evaluates too."""
     if _on_cpu(x):
         return ref.dual_norm_ref(x, alpha, R)
-    return dual_norm_cuda(x.contiguous(), alpha.contiguous(), R.contiguous())
+    return dual_norm_cuda(x, alpha, R)
 
 
 def sgl_dual_norm_terms_fused(corr_grouped: torch.Tensor, tau,
-                              w: torch.Tensor) -> torch.Tensor:
-    """Per-group Omega^D terms through the dual-norm kernel (drop-in for
-    ``sgl.sgl_dual_norm_terms``)."""
-    from ..core.sgl import epsilons, group_weight_total
-
-    eps = epsilons(tau, w)
-    scale = group_weight_total(tau, w)
-    return dual_norm_groups(corr_grouped, 1.0 - eps, eps) / scale
+                              w: torch.Tensor,
+                              mask: Optional[torch.Tensor] = None,
+                              B: int = 1):
+    """Omega^D of B lambda segments in one dual-norm launch: corr_grouped
+    (B * Gb, ng), w (Gb,), mask (Gb,) bool or None.  Returns the per-group
+    terms (B * Gb,) (``sgl.sgl_dual_norm_terms``) and per segment the
+    maximum of those whose group is set in ``mask`` (0 for the others),
+    (B,)."""
+    if _on_cpu(corr_grouped):
+        return ref.sgl_dual_norm_ref(corr_grouped, tau, w, mask, B)
+    return sgl_dual_norm_cuda(corr_grouped, w, float(tau), mask, B)
 
 
 def bcd_epochs_fused(Xt, Lg, w, fmask, beta, carry, tau, lam_b,
@@ -177,14 +181,17 @@ def sgl_prox_batched(beta: torch.Tensor, lam_b: torch.Tensor, L, w: torch.Tensor
                      tau) -> torch.Tensor:
     """Two-level prox over a batched-lambda state: beta (B, G, ng), lam_b
     (B,), L a scalar or (B,), w (G,).  Each (b, g) row is an independent
-    prox at step lam_b[b] / L, so this is :func:`sgl_prox` over the
-    flattened (B * G, ng) view at lam = 1."""
-    B, G, ng = beta.shape
-    step = torch.as_tensor(lam_b / L, dtype=beta.dtype, device=beta.device)
-    step = torch.broadcast_to(step.reshape(-1)[:, None], (B, G)).reshape(-1)
-    w_flat = torch.broadcast_to(w[None, :], (B, G)).reshape(-1)
-    return sgl_prox(beta.reshape(B * G, ng), step, w_flat, tau,
-                    1.0).reshape(B, G, ng)
+    prox at step lam_b[b] / L: on the card one launch that forms the steps
+    itself; the plain version is :func:`sgl_prox` over the flattened
+    (B * G, ng) view at lam = 1."""
+    if _on_cpu(beta):
+        B, G, ng = beta.shape
+        step = torch.as_tensor(lam_b / L, dtype=beta.dtype, device=beta.device)
+        step = torch.broadcast_to(step.reshape(-1)[:, None], (B, G)).reshape(-1)
+        w_flat = torch.broadcast_to(w[None, :], (B, G)).reshape(-1)
+        return ref.sgl_prox_ref(beta.reshape(B * G, ng), step, w_flat, tau,
+                                1.0).reshape(B, G, ng)
+    return sgl_prox_batched_cuda(beta, lam_b, L, w, float(tau))
 
 
 class AuditCounters:

@@ -6,10 +6,13 @@ holds each kernel against its plain version on the card.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 __all__ = ["CHUNK", "bcd_chunked", "bcd_epochs_logistic_ref", "bcd_epochs_ref",
-           "corr_ref", "dual_norm_ref", "screening_scores_ref", "sgl_prox_ref"]
+           "corr_ref", "dual_norm_ref", "screening_scores_ref",
+           "sgl_dual_norm_ref", "sgl_prox_ref"]
 
 
 def corr_ref(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -35,6 +38,21 @@ def dual_norm_ref(x: torch.Tensor, alpha: torch.Tensor,
     from ..core.epsilon_norm import lam
 
     return lam(x, alpha, R)
+
+
+def sgl_dual_norm_ref(corr: torch.Tensor, tau, w: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None, B: int = 1):
+    """Omega^D over B lambda segments: ``sgl.sgl_dual_norm_terms`` of corr
+    (B * Gb, ng) against the shared w (Gb,), and per segment the maximum of
+    the terms whose group is set in ``mask`` (Gb,) (0 for the others; every
+    group without a mask).  Returns (terms (B * Gb,), dmax (B,))."""
+    from ..core.sgl import sgl_dual_norm_terms
+
+    rows, ng = corr.shape
+    terms = sgl_dual_norm_terms(corr.reshape(B, rows // B, ng), tau, w)
+    kept = terms if mask is None else torch.where(mask, terms,
+                                                  torch.zeros_like(terms))
+    return terms.reshape(-1), kept.amax(dim=-1)
 
 
 CHUNK = 16   # groups evaluated at once, as the CUDA kernels' widest chunk

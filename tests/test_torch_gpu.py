@@ -25,13 +25,13 @@ from repro_torch.kernels.bcd_epoch import (
     bcd_epoch_launch_spec,
 )
 from repro_torch.kernels.bcd_epoch_logistic import bcd_epoch_logistic_cuda
-from repro_torch.kernels.dual_norm import dual_norm_cuda
+from repro_torch.kernels.dual_norm import dual_norm_cuda, sgl_dual_norm_cuda
 from repro_torch.kernels.screening_scores import (
     corr_geometry,
     screening_corr_cuda,
     screening_scores_cuda,
 )
-from repro_torch.kernels.sgl_prox import sgl_prox_cuda
+from repro_torch.kernels.sgl_prox import sgl_prox_batched_cuda, sgl_prox_cuda
 from repro_torch.obs import check as ocheck
 from repro_torch.obs import timing as otiming
 from repro_torch.obs import trace as otrace
@@ -117,6 +117,129 @@ def test_dual_norm_kernel_is_scale_invariant(hopper, scale):
                                rtol=1e-12, atol=0)
 
 
+def _groups(rng, rows, ng, dev):
+    """Groups at mixed scales with an all-zero group, tied entries (a whole
+    group equal, half a group equal, entries rounded to thirds) and one
+    entry per group in the last."""
+    x = rng.standard_normal((rows, ng)) * rng.uniform(0.01, 10.0, (rows, 1))
+    x[1] = 0.0
+    x[2] = 0.5
+    x[3, :(ng + 1) // 2] = -1.25
+    x[4] = np.round(3.0 * x[4]) / 3.0
+    return _t(x, dev)
+
+
+@pytest.mark.parametrize("ng", [1, 3, 7, 8, 10, 32])
+def test_dual_norm_kernel_on_ties_and_special_cases(hopper, ng):
+    rng = np.random.default_rng(ng)
+    x = _groups(rng, 300, ng, hopper)
+    a = rng.uniform(0.05, 1.0, 300)
+    R = rng.uniform(0.05, 1.0, 300)
+    a[5], R[6], a[7], R[7] = 0.0, 0.0, 0.0, 0.0     # lam's special cases
+    a, R = _t(a, hopper), _t(R, hopper)
+    got, want = dual_norm_cuda(x, a, R), ref.dual_norm_ref(x, a, R)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-12, atol=0)
+    assert torch.equal(got, dual_norm_cuda(x, a, R))
+
+
+def test_dual_norm_kernel_single_entry_smallest_normal(hopper):
+    """|x| / (alpha + R) for a group of one entry at the smallest normal f64
+    (the reference's sorted form returns NaN there)."""
+    x = _t([[2.2250738585072014e-308]], hopper)
+    got = dual_norm_cuda(x, _t([0.5], hopper), _t([1.0], hopper))
+    np.testing.assert_allclose(got.cpu().numpy(), [1.4833825723381344e-308],
+                               rtol=1e-12, atol=0)
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        ref.dual_norm_ref(x, _t([0.5], hopper), _t([1.0], hopper)).cpu(),
+        rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "random", "all-false"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("ng", [1, 7, 10, 32])
+def test_sgl_dual_norm_kernel_matches_plain(hopper, ng, B, mask_kind):
+    rng = np.random.default_rng(10 * ng + B)
+    Gb = 1_000
+    corr = _groups(rng, B * Gb, ng, hopper)
+    w = rng.uniform(0.5, 3.0, Gb)
+    w[9] = 0.0
+    w = _t(w, hopper)
+    mask = None
+    if mask_kind != "none":
+        mask = torch.as_tensor(rng.random(Gb) > 0.5).to(hopper)
+        if mask_kind == "all-false":
+            mask[:] = False
+    for tau in (0.0, 0.4, 1.0):
+        before = _util.launch_counts()["dual_norm"]
+        terms, dmax = sgl_dual_norm_cuda(corr, w, tau, mask, B)
+        assert _util.launch_counts()["dual_norm"] == before + 1
+        want_t, want_m = ref.sgl_dual_norm_ref(corr, tau, w, mask, B)
+        np.testing.assert_allclose(terms.cpu().numpy(),
+                                   want_t.cpu().numpy(), rtol=1e-12, atol=0)
+        np.testing.assert_allclose(dmax.cpu().numpy(), want_m.cpu().numpy(),
+                                   rtol=1e-12, atol=0)
+        kept = terms.reshape(B, Gb)
+        if mask is not None:
+            kept = torch.where(mask, kept, torch.zeros_like(kept))
+        assert torch.equal(dmax, kept.amax(dim=-1))
+        again = sgl_dual_norm_cuda(corr, w, tau, mask, B)
+        assert torch.equal(terms, again[0]) and torch.equal(dmax, again[1])
+
+
+@pytest.mark.parametrize("scale", [1e-170, 1e170])
+def test_sgl_dual_norm_kernel_is_scale_invariant(hopper, scale):
+    rng = np.random.default_rng(3)
+    corr = _t(rng.standard_normal((4 * 513, 7)) * scale, hopper)
+    w = _t(rng.uniform(0.5, 3.0, 513), hopper)
+    terms, dmax = sgl_dual_norm_cuda(corr, w, 0.4, None, 4)
+    want_t, want_m = ref.sgl_dual_norm_ref(corr, 0.4, w, None, 4)
+    np.testing.assert_allclose(terms.cpu().numpy(), want_t.cpu().numpy(),
+                               rtol=1e-12, atol=0)
+    np.testing.assert_allclose(dmax.cpu().numpy(), want_m.cpu().numpy(),
+                               rtol=1e-12, atol=0)
+
+
+def test_sgl_dual_norm_kernel_propagates_nan(hopper):
+    rng = np.random.default_rng(4)
+    Gb = 700
+    corr = _t(rng.standard_normal((3 * Gb, 7)), hopper)
+    corr[Gb + 600, 3] = float("nan")             # segment 1, group 600
+    w = _t(rng.uniform(0.5, 3.0, Gb), hopper)
+    terms, dmax = sgl_dual_norm_cuda(corr, w, 0.4, None, 3)
+    assert torch.isnan(terms[Gb + 600]) and torch.isnan(dmax[1])
+    assert not torch.isnan(dmax[0]) and not torch.isnan(dmax[2])
+    mask = torch.ones(Gb, dtype=torch.bool, device=hopper)
+    mask[600] = False
+    _, dmax = sgl_dual_norm_cuda(corr, w, 0.4, mask, 3)
+    want = ref.sgl_dual_norm_ref(corr, 0.4, w, mask, 3)[1]
+    assert not torch.isnan(dmax).any() and torch.equal(dmax, want)
+
+
+def test_solver_omega_d_is_one_launch(hopper):
+    """solver._dual_terms on the "cuda" backend runs one kernel on the
+    device, the dual norm's: no elementwise op, divide or max around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.solver import _dual_terms
+
+    rng = np.random.default_rng(6)
+    corr = _t(rng.standard_normal((4 * 256, 7)), hopper)
+    w = _t(rng.uniform(0.5, 3.0, 256), hopper)
+    mask = torch.as_tensor(rng.random(256) > 0.3).to(hopper)
+    for kw in ({}, {"mask": mask}, {"B": 4}):
+        c = corr if kw.get("B") else corr[:256]
+        _dual_terms(c, 0.4, w, "cuda", **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _dual_terms(c, 0.4, w, "cuda", **kw)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_time_total > 0]
+        assert len(kernels) == 1 and "dual_norm" in kernels[0], kernels
+
+
 PROX_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
             torch.float64: dict(rtol=1e-12, atol=1e-12)}
 
@@ -152,6 +275,34 @@ def test_sgl_prox_batched_and_empty_on_card(hopper):
     empty = _t(np.zeros((0, 7)), hopper)
     assert sgl_prox_cuda(empty, empty[:, 0], empty[:, 0], 0.3, 1.0).shape == (0, 7)
     assert _util.launch_counts()["sgl_prox"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [3.0, "0-d", "per-lambda"])
+@pytest.mark.parametrize("B,G,ng", [(8, 10_512, 7), (3, 333, 5), (2, 77, 128)])
+def test_sgl_prox_batched_kernel_matches_plain(hopper, B, G, ng, L, dtype):
+    """The batched mode (steps formed in the kernel) against the plain
+    version, at odd widths whose tiles start off a 16-byte boundary, and on
+    a beta view that starts off one (its output does not: scalar stores)."""
+    rng = np.random.default_rng(B * G * ng)
+    flat = torch.as_tensor(rng.standard_normal(B * G * ng + 1)).to(hopper,
+                                                                   dtype)
+    lam_b = torch.as_tensor(rng.uniform(0.1, 2.0, B)).to(hopper, dtype)
+    w = torch.as_tensor(rng.uniform(0.5, 3.0, G)).to(hopper, dtype)
+    Lv = {"0-d": torch.tensor(2.5, dtype=dtype, device=hopper),
+          "per-lambda": torch.as_tensor(rng.uniform(1.0, 4.0, B)).to(
+              hopper, dtype)}.get(L, L)
+    for beta in (flat[:-1].reshape(B, G, ng), flat[1:].reshape(B, G, ng)):
+        before = _util.launch_counts()["sgl_prox"]
+        got = sgl_prox_batched_cuda(beta, lam_b, Lv, w, 0.4)
+        assert _util.launch_counts()["sgl_prox"] == before + 1
+        want = ops.sgl_prox_batched(beta.cpu(), lam_b.cpu(),
+                                    Lv.cpu() if isinstance(Lv, torch.Tensor)
+                                    else Lv, w.cpu(), 0.4)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   **PROX_TOL[dtype])
+        assert torch.equal(got, sgl_prox_batched_cuda(beta, lam_b, Lv, w,
+                                                      0.4))
 
 
 def test_timing_harness_on_card(hopper):

@@ -19,6 +19,7 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "lambda_cost_torch.py",
     ROOT / "tools" / "bcd_step_cost_torch.py",
     ROOT / "tools" / "dual_norm_scale_probe.py",
+    ROOT / "tools" / "small_kernels_torch.py",
     ROOT / "examples" / "quickstart_torch.py"]
 
 

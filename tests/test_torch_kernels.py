@@ -113,10 +113,11 @@ def test_sgl_dual_norm_terms_fused_matches_pallas():
     rng = np.random.default_rng(7)
     corr = rng.standard_normal((24, 7))
     w = np.sqrt(7.0) * np.ones(24)
-    got = ops.sgl_dual_norm_terms_fused(_t(corr), 0.3, _t(w)).numpy()
+    got, dmax = ops.sgl_dual_norm_terms_fused(_t(corr), 0.3, _t(w))
     want = np.asarray(jops.sgl_dual_norm_terms_fused(jnp.asarray(corr), 0.3,
                                                      jnp.asarray(w)))
-    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(dmax.numpy(), [want.max()], **TOL)
 
 
 def _bcd_inputs(seed, B=3, Gb=12, n=30, ng=7):

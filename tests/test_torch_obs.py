@@ -423,7 +423,7 @@ def test_measure_kernels_smoke_on_cpu():
             "screening_corr", "corr")
     assert rows["sgl_prox/paper-ng8"]["launch"] == {
         "kernel": "sgl_prox", "grid": [16, 1, 1], "block": [256, 1, 1],
-        "smem_bytes": 0}
+        "smem_bytes": 32 * 8 * 8 + 16}
 
 
 def test_check_cases_on_cpu_compares_plain_with_plain():

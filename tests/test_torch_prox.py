@@ -19,8 +19,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.sgl_prox import (
-    lane_width,
+    SMEM_BUDGET,
+    sgl_prox_batched_cuda,
     sgl_prox_cuda,
+    sgl_prox_geometry,
     sgl_prox_launch_spec,
 )
 
@@ -101,9 +103,71 @@ def test_sgl_prox_kernel_wrapper_refuses_cpu_tensors_and_other_dtypes():
 @pytest.mark.parametrize("G,ng", [(1, 1), (4096, 8), (10_512, 7), (33, 5),
                                   (512, 128), (84_096, 7)])
 def test_sgl_prox_launch_spec_covers_every_row(G, ng):
-    spec = sgl_prox_launch_spec(G, ng)
-    width = lane_width(ng)
-    assert 32 % width == 0 and (width >= ng or width == 32)
-    assert spec.block[0] % 32 == 0                 # whole warps: full shuffles
-    assert spec.grid[0] * spec.block[0] >= G * width
-    assert (spec.grid[0] - 1) * spec.block[0] < G * width
+    """Blocks of whole tiles cover every row once; a tile and its 16 bytes
+    of alignment slack fit the shared memory a block gets by default."""
+    for itemsize in (4, 8):
+        spec = sgl_prox_launch_spec(G, ng, itemsize)
+        geo = sgl_prox_geometry(G, ng, itemsize)
+        assert spec.block[0] % 32 == 0 and spec.block[0] >= 1
+        assert spec.grid[0] * geo.tile_rows >= G
+        assert (spec.grid[0] - 1) * geo.tile_rows < G
+        assert spec.smem_bytes == geo.tile_rows * ng * itemsize + 16
+        assert spec.smem_bytes <= SMEM_BUDGET
+
+
+def test_sgl_prox_geometry_spreads_small_launches_and_narrows_wide_rows():
+    """Two blocks per SM where the rows allow, in whole warps of rows between
+    32 and 256; tiles of wide rows shrink to fit shared memory."""
+    assert sgl_prox_geometry(4_096, 8).tile_rows == 32          # 128 blocks
+    assert sgl_prox_geometry(10_512, 7).tile_rows == 64         # 165 blocks
+    assert sgl_prox_geometry(8 * 10_512, 7).tile_rows == 256    # 329 blocks
+    assert sgl_prox_geometry(10, 7).tile_rows == 32
+    wide = sgl_prox_geometry(100, 4096, 8)
+    assert wide.tile_rows == 1 and wide.grid == 100
+    assert sgl_prox_geometry(100, 128, 8).tile_rows == 32
+    assert sgl_prox_geometry(100_000, 128, 4).tile_rows == 95
+    with pytest.raises(ValueError, match="rows of at most"):
+        sgl_prox_geometry(10, 7000, 8)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L", [3.5, "0-d", "per-lambda"])
+@pytest.mark.parametrize("B,G,ng", [(8, 105, 7), (1, 33, 5), (4, 10, 10)])
+def test_sgl_prox_batched_plain_matches_pallas_at_odd_widths(B, G, ng, L,
+                                                             dtype):
+    """The batched plain prox against the reference's batched Pallas entry
+    (interpret mode) at the climate path's odd width ng = 7, for every form
+    of L the batched kernel takes: a number, a 0-d tensor, one per
+    lambda."""
+    rng = np.random.default_rng(B * G * ng)
+    beta = rng.standard_normal((B, G, ng)).astype(dtype)
+    lam_b = rng.uniform(0.1, 2.0, B).astype(dtype)
+    w = rng.uniform(0.5, 3.0, G).astype(dtype)
+    w[0] = 0.0
+    if L == "per-lambda":
+        Lv = rng.uniform(1.0, 4.0, B).astype(dtype)
+        Lt = torch.as_tensor(Lv)
+    elif L == "0-d":
+        Lv = dtype(2.5)
+        Lt = torch.as_tensor(Lv)
+    else:
+        Lv = Lt = L
+    got = ops.sgl_prox_batched(torch.as_tensor(beta), torch.as_tensor(lam_b),
+                               Lt, torch.as_tensor(w), 0.4)
+    assert got.shape == (B, G, ng) and got.dtype == torch.as_tensor(beta).dtype
+    want = np.asarray(jops.sgl_prox_batched(
+        jnp.asarray(beta), jnp.asarray(lam_b), jnp.asarray(Lv),
+        jnp.asarray(w), tau=0.4))
+    np.testing.assert_allclose(got.numpy(), want, **_tol(dtype))
+
+
+def test_sgl_prox_batched_kernel_wrapper_checks_its_operands():
+    beta = torch.zeros((2, 3, 4), dtype=torch.float64)
+    lam_b = torch.ones(2, dtype=torch.float64)
+    w = torch.ones(3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        sgl_prox_batched_cuda(beta, lam_b, 2.0, w, 0.3)
+    with pytest.raises(ValueError, match=r"\(B, G, ng\)"):
+        sgl_prox_batched_cuda(beta[0], lam_b, 2.0, w, 0.3)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sgl_prox_batched_cuda(beta.half(), lam_b.half(), 2.0, w.half(), 0.3)

@@ -74,9 +74,12 @@ CORR_ROUNDS = 3
 STAGE_BYTES_SWEEP = (40_000, 60_000, 80_000, 110_000)   # corr ring stages, bytes
 
 
-def load_tree(root: Path, alias: str):
+def load_tree(root: Path, alias: str,
+              modules=("kernels._build", "kernels.bcd_epoch",
+                       "kernels.screening_scores")):
     """``root/src/repro_torch`` imported as package ``alias``; returns its
-    kernel modules ``(_build, bcd_epoch, screening_scores)``."""
+    ``modules`` (by default the kernel modules ``(_build, bcd_epoch,
+    screening_scores)``)."""
     pkg = root.resolve() / "src" / "repro_torch"
     if alias == "repro_torch":
         sys.path.insert(0, str(pkg.parent))
@@ -86,8 +89,7 @@ def load_tree(root: Path, alias: str):
         module = importlib.util.module_from_spec(spec)
         sys.modules[alias] = module
         spec.loader.exec_module(module)
-    return tuple(importlib.import_module(f"{alias}.kernels.{m}")
-                 for m in ("_build", "bcd_epoch", "screening_scores"))
+    return tuple(importlib.import_module(f"{alias}.{m}") for m in modules)
 
 
 def ptxas_report(label: str, build) -> None:
