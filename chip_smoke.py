@@ -21,8 +21,17 @@ through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
 * the observability layer: the kernel-timing harness
   (``repro_torch.obs.timing.measure_kernels(scale="paper")``, the entry
   point that runs the ``sgl_prox`` kernel), the ``python -m repro_torch.obs
-  --check`` gate with a smoke solve on the card, and the synthetic path
-  again with tracing on, which must give the untraced run's bits.
+  --check`` gate with its two-request serve smoke on the card, and the
+  synthetic path again with tracing on, which must give the untraced run's
+  bits;
+* the serving layer (``repro_torch.serve.SGLServer`` on the card): on the
+  climate problem, two identical tenants coalesced into one solve, an exact
+  repeat served from the certificate store, and a perturbed-y tenant that
+  shares the transposed design; on the synthetic problem, a checkpointed
+  path preempted and resumed, an epoch budget that ends in ``Degraded``, and
+  an injected epoch-kernel launch failure that ends in ``ServeError``;
+* the elastic-net reduction (paper Appendix D) on the synthetic problem:
+  the tall augmented design, n = 10,100 rows.
 
 dual_norm is held against its plain version through both entries (Lambda
 per group, and a round's whole Omega^D with its maximum per lambda, with and
@@ -81,6 +90,19 @@ SYNTHETIC = dict(name="synthetic", tau=0.2, tol=1e-8, T=40, delta=3.0,
 SYNTHETIC_RULES = dict(name="synthetic-rules", tau=0.2, tol=1e-8, T=40,
                        delta=3.0, solve=8, plain=8,
                        rules=("static", "dynamic", "dst3"))
+# The serving phases: the climate grid's leading points (the climate phase's
+# plain rerun holds the served path's masks), the synthetic grid's leading
+# points in checkpointed segments, the epoch budget that trips mid-path, and
+# the seed of tenant d's perturbation of y.
+SERVE_CLIMATE_POINTS = CLIMATE["plain"]
+SERVE_SYNTHETIC_POINTS = 16
+SERVE_CKPT_EVERY = 4
+SERVE_EPOCH_BUDGET = 60
+SEED = 0
+WAIT_S = 600              # the longest a served future may take here
+# The elastic phase: the synthetic problem with a ridge term lam2 = 1.
+ELASTIC = dict(name="elastic", tau=0.2, tol=1e-8, T=40, delta=3.0, solve=4,
+               plain=4, lam2=1.0)
 SAFETY_TOL = 1e-10
 LEAK = 1e-8               # |beta| a screened variable may have at SAFETY_TOL
 # A Theorem-1 test whose value lies this close (relative) to its threshold
@@ -91,6 +113,16 @@ BORDERLINE = 1e-9
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+# nvidia-smi's "name, power.limit" of the card, set by main(); every phase
+# line carries it.
+CARD = ""
+
+
+def phase_line(phase: str, record: dict) -> None:
+    """One JSON line for a phase, with the card's name and power limit."""
+    log(json.dumps({"phase": phase, "card": CARD, **record}))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -997,12 +1029,13 @@ def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at):
         f"max_abs_beta_diff={dbeta:.3e} max_gap={float(pres.gaps.max()):.3e}")
     if not (pres.gaps <= cfg.tol).all():
         raise AssertionError(f"{label}: plain path gaps above tol")
+    return pres
 
 
 def run_path(config, problem):
     """Drive a GAP path with the kernels, then its leading lambdas with the
-    plain backends; returns the launch counts, the result and the wall-clock
-    of the kernel run."""
+    plain backends; returns the launch counts, the result, the wall-clock
+    of the kernel run, the grid and the plain backends' result."""
     from repro_torch.core import SGLSession, SolverConfig
     from repro_torch.core.session import lambda_grid
 
@@ -1028,8 +1061,9 @@ def run_path(config, problem):
         beta_prev = res.betas[t - 1] if t else 0.0 * res.betas[0]
         return seq_margins(problem, beta_prev, float(lambdas[t]), loss)
 
-    plain_rerun(label, problem, cfg, lambdas[:n_plain], res, m, margins_at)
-    return counts, res, wall
+    pres = plain_rerun(label, problem, cfg, lambdas[:n_plain], res, m,
+                       margins_at)
+    return counts, res, wall, lambdas, pres
 
 
 def run_rules(config, problem):
@@ -1095,6 +1129,467 @@ def run_rules(config, problem):
     return total
 
 
+def same_bits(a, b) -> bool:
+    """Two PathResults with the same lambdas, betas, gaps, epochs and masks,
+    bit for bit."""
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "lambdas", "betas", "gaps", "epochs", "group_active", "feat_active",
+        "seq_screened", "dyn_screened"))
+
+
+def check_served(label, res, tol) -> None:
+    """A served path's outputs: finite, every gap <= tol, safe certificates,
+    no demotion, no on-the-fly transposed copy."""
+    import numpy as np
+
+    if not (np.isfinite(res.betas).all() and np.isfinite(res.gaps).all()):
+        raise AssertionError(f"{label}: non-finite served output")
+    if not (res.gaps <= tol).all():
+        raise AssertionError(f"{label}: served gaps above tol {tol}: "
+                             f"{res.gaps}")
+    if not res.certificates_safe or res.degraded:
+        raise AssertionError(f"{label}: unsafe or degraded served path")
+    if res.kernel_demotions != 0 or res.n_transpose_copies != 0:
+        raise AssertionError(f"{label}: demotions or transposed copies")
+
+
+def request_record(resp, digest_s: float) -> dict:
+    return dict(tenant=resp.tenant, served_from=resp.served_from,
+                coalesced_n=resp.coalesced_n,
+                session_cache_hit=resp.session_cache_hit,
+                warm_started=resp.warm_started, queue_s=resp.queue_s,
+                solve_s=resp.solve_s, digest_s=digest_s)
+
+
+def serve_counters(server) -> dict:
+    keys = ("requests", "path_solves", "coalesced_requests", "store_served",
+            "warm_started", "resumed", "degraded", "retries", "failed")
+    out = {k: server.counters[k] for k in keys}
+    out["design_hits"] = server.cache.design_hits
+    return out
+
+
+def run_serve_climate(problem, lambdas, pres):
+    """The serving layer on the climate problem at full width, on the card:
+    tenants a and b (identical, submitted together: one coalesced solve),
+    tenant c (an exact repeat: served from the store), tenant d (y perturbed
+    by 0.01 std(y) of seeded noise: a session-cache miss that adopts the
+    transposed design of a and b; its warm hint, a stored beta at
+    lambda_max, is 0 and is refused), tenant e (another such perturbation,
+    from the grid's second point: it takes a stored beta of another y there
+    as its warm start, and every group it screens is zero in the GAP
+    solution at SAFETY_TOL).  ``lambdas`` is the climate phase's grid
+    and ``pres`` its plain-backend rerun of the leading points.  Launch
+    counts are zeroed before the first request and read after the server
+    stops; the comparison solves run after that, on the main thread alone.
+    Returns (launch counts, the phase's record)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SGLSession, SolverConfig
+    from repro_torch.kernels import _util
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve import PathRequest, ServeConfig, SGLServer
+
+    tol = CLIMATE["tol"]
+    cfg = SolverConfig(tol=tol)
+    grid = np.asarray(lambdas[:SERVE_CLIMATE_POINTS])
+    digest = REGISTRY.get("serve.digest_s")
+    y = problem.y.cpu().numpy()
+    noise = np.random.default_rng(SEED).standard_normal(y.shape)
+    problem_d = problem._replace(y=torch.as_tensor(
+        y + 0.01 * y.std() * noise, dtype=problem.y.dtype).to(problem.device))
+    noise = np.random.default_rng(SEED + 1).standard_normal(y.shape)
+    problem_e = problem._replace(y=torch.as_tensor(
+        y + 0.01 * y.std() * noise, dtype=problem.y.dtype).to(problem.device))
+
+    grid_e = grid[1:]
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    t0 = time.perf_counter()
+    # a and b are queued before the worker starts, so its first drain
+    # takes both (max_batch = 2) whatever their digests cost.
+    server = SGLServer(ServeConfig(default_solver=cfg, max_batch=2))
+    try:
+        d0 = digest.total
+        futs = [server.submit(PathRequest(t, problem, grid)) for t in "ab"]
+        server.start()
+        ra, rb = (f.result(timeout=WAIT_S) for f in futs)
+        d1 = digest.total
+        solves_ab = server.counters["path_solves"]
+        rc = server.submit(PathRequest("c", problem, grid)).result(
+            timeout=WAIT_S)
+        d2 = digest.total
+        # The stored records' masks are overwritten with their complement:
+        # were a mask of the store ever returned, tenant d's result would
+        # show one of these rows.
+        poison, poisoned = [], set()
+
+        def poison_records():
+            for key, rec in list(server.store._records.items()):
+                if key not in poisoned:
+                    poisoned.add(key)
+                    poison.append(~rec.group_active)
+                    server.store._records[key] = rec._replace(
+                        group_active=poison[-1])
+
+        poison_records()
+        rd = server.submit(PathRequest("d", problem_d, grid)).result(
+            timeout=WAIT_S)
+        d3 = digest.total
+        poison_records()
+        re_ = server.submit(PathRequest("e", problem_e, grid_e)).result(
+            timeout=WAIT_S)
+        d4 = digest.total
+    finally:
+        server.stop(timeout=WAIT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _util.launch_counts()
+    sessions = list(server.cache._sessions.values())
+
+    if not (ra.coalesced_n == rb.coalesced_n == 2 and solves_ab == 1
+            and ra.served_from == rb.served_from == "coalesced"):
+        raise AssertionError("serve climate: a and b were not coalesced "
+                             "into one solve")
+    if not same_bits(ra.result, rb.result):
+        raise AssertionError("serve climate: a and b differ")
+    if not (rc.served_from == "store" and rc.store_hit
+            and server.counters["path_solves"] == 3
+            and same_bits(rc.result, ra.result)):
+        raise AssertionError("serve climate: c was not the stored result "
+                             "of a, or it ran a solve")
+    if (rd.session_cache_hit or re_.session_cache_hit
+            or server.cache.design_hits != 2
+            or len(sessions) != 3 or len(server.cache._designs) != 1
+            or any(s._xt_pre is not sessions[0]._xt_pre for s in sessions)):
+        raise AssertionError("serve climate: d and e did not adopt the "
+                             "transposed design of a and b")
+    for label, r in (("a", ra), ("d", rd), ("e", re_)):
+        check_served(f"serve climate {label}", r.result, tol)
+    # A returned mask of the store would equal one of the complements.
+    for label, r, off in (("d", rd, 0), ("e", re_, 1)):
+        if any((r.result.group_active[t] == bad[t + off]).all()
+               for bad in poison for t in range(len(r.result.lambdas))
+               if t + off < len(bad)):
+            raise AssertionError(f"serve climate: {label} returned a stored "
+                                 "mask")
+    dec_d, dec_e = server.warm_log
+    if rd.warm_started or dec_d["admitted"]:
+        raise AssertionError(f"serve climate: d's hint at lambda_max was "
+                             f"admitted: {dec_d}")
+    if not (re_.warm_started and dec_e["admitted"] and not dec_e["same_y"]
+            and dec_e["lam_src"] == float(grid_e[0])):
+        raise AssertionError("serve climate: e's warm start from a stored "
+                             f"beta of another y was not admitted: {dec_e}")
+    for name in LSQ_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"serve climate: kernel {name} never "
+                                 "launched")
+    for name in CLIMATE["idle"]:
+        if counts[name] != 0:
+            raise AssertionError(f"serve climate: kernel {name} launched")
+
+    # Comparisons, on the main thread with the worker stopped.
+    t1 = time.perf_counter()
+    direct = SGLSession(problem, cfg).solve_path(grid)
+    if not same_bits(direct, ra.result):
+        raise AssertionError("serve climate: the served path differs from "
+                             "a direct session solve")
+    # The points the climate phase compares its own path on (run_path).
+    m = CLIMATE["plain"] - 3
+    flips_a = compare_masks(
+        "serve climate a", problem, ra.result, pres, m,
+        lambda t: seq_margins(problem, ra.result.betas[t - 1] if t else
+                              0.0 * ra.result.betas[0], float(grid[t])))
+    cold_d = SGLSession(problem_d, cfg).solve_path(grid)
+    flips_d = compare_masks(
+        "serve climate d", problem_d, rd.result, cold_d, len(grid),
+        lambda t: seq_margins(problem_d, rd.result.betas[t - 1] if t else
+                              0.0 * rd.result.betas[0], float(grid[t])))
+    # e's discards come from fresh rounds on its own problem, started at a
+    # stored beta of another y: none may be nonzero in the GAP solution.
+    oracle_e = SGLSession(problem_e, cfg._replace(tol=SAFETY_TOL)).solve_path(
+        grid_e)
+    if not (oracle_e.gaps <= SAFETY_TOL).all():
+        raise AssertionError("serve climate: e's oracle above its tol")
+    fm = problem.feat_mask.cpu().numpy()
+    leaked_e = max(float(np.abs(oracle_e.betas[t])[
+        ~re_.result.feat_active[t] & fm].max(initial=0.0))
+        for t in range(len(grid_e)))
+    if leaked_e > LEAK:
+        raise AssertionError(f"serve climate: e screened a variable of "
+                             f"|beta| {leaked_e:.3e} in the GAP solution at "
+                             f"tol {SAFETY_TOL:g}")
+    if not (cold_d.gaps <= tol).all():
+        raise AssertionError("serve climate: cold d above tol")
+    record = dict(
+        problem="climate", points=len(grid), points_e=len(grid_e), tol=tol,
+        wall_s=wall,
+        compare_s=time.perf_counter() - t1, launches=counts,
+        **serve_counters(server),
+        requests_detail=[request_record(ra, d1 - d0), request_record(
+            rb, d1 - d0), request_record(rc, d2 - d1),
+            request_record(rd, d3 - d2), request_record(re_, d4 - d3)],
+        digest_calls=digest.count, digest_total_s=digest.total,
+        warm_log=list(server.warm_log), borderline_flips_a=flips_a,
+        borderline_flips_d=flips_d,
+        same_bits_direct=True, d_same_bits_cold=same_bits(rd.result, cold_d),
+        epochs_a=int(ra.result.epochs.sum()),
+        epochs_d=int(rd.result.epochs.sum()),
+        epochs_e=int(re_.result.epochs.sum()), leaked_e=leaked_e)
+    return counts, record
+
+
+class _PlainCalls:
+    """Counts calls of the kernels' plain versions while it is entered (it
+    wraps the functions of ``repro_torch.kernels.ref``, which the solver
+    and the wrappers look up at call time)."""
+
+    NAMES = ("corr_ref", "dual_norm_ref", "sgl_dual_norm_ref",
+             "bcd_chunked", "bcd_epochs_ref", "bcd_epochs_logistic_ref",
+             "screening_scores_ref", "sgl_prox_ref")
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        self.calls = {n: 0 for n in self.NAMES}
+        self.saved = {n: getattr(ref, n) for n in self.NAMES}
+
+        def counted(name, fn):
+            def wrapper(*args, **kwargs):
+                self.calls[name] += 1
+                return fn(*args, **kwargs)
+            return wrapper
+
+        for n, fn in self.saved.items():
+            setattr(ref, n, counted(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+
+        for n, fn in self.saved.items():
+            setattr(ref, n, fn)
+        return False
+
+
+def run_serve_synthetic(problem, lambdas):
+    """The serving layer's fault protocol on the synthetic problem, on the
+    card: (4) a path in segments of SERVE_CKPT_EVERY points checkpointed
+    under build/, drained after its first segment (Preempted) and resumed by
+    a new server on the same directory, against an uninterrupted run with
+    the same segmenting; (5) an epoch budget that trips mid-path (Degraded);
+    (6) an injected raise at every fused epoch dispatch (KernelLaunchError on
+    each attempt, then ServeError), with no demotion and no call of a plain
+    version.  Returns (launch counts, the phase's record)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.core import SolverConfig
+    from repro_torch.faults import (
+        Degraded,
+        FaultPlan,
+        FaultSpec,
+        KernelLaunchError,
+        ServeError,
+        inject,
+    )
+    from repro_torch.kernels import _util
+    from repro_torch.serve import PathRequest, Preempted, ServeConfig, SGLServer
+
+    tol = SYNTHETIC["tol"]
+    cfg = SolverConfig(tol=tol)
+    grid = np.asarray(lambdas[:SERVE_SYNTHETIC_POINTS])
+    root = ROOT / "build" / "serve_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def chunked(sub, **kw):
+        return ServeConfig(default_solver=cfg, ckpt_dir=str(root / sub),
+                           ckpt_every=SERVE_CKPT_EVERY,
+                           coalesce_window_s=0.05, **kw)
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    t0 = time.perf_counter()
+    request = PathRequest("s", problem, grid)
+    ref_server = SGLServer(chunked("ref")).start()
+    try:
+        ref = ref_server.submit(request).result(timeout=WAIT_S)
+    finally:
+        ref_server.stop(timeout=WAIT_S)
+    t_ref = time.perf_counter() - t0
+    check_served("serve synthetic uninterrupted", ref.result, tol)
+
+    server = SGLServer(chunked("run"))
+
+    def drain_after_first_segment(digest, cursor, T):
+        if cursor >= SERVE_CKPT_EVERY:
+            server.drain()
+
+    server.config.on_segment = drain_after_first_segment
+    server.start()
+    fut = server.submit(request)
+    preempted = fut.exception(timeout=WAIT_S)
+    server.join(timeout=WAIT_S)
+    if not (isinstance(preempted, Preempted)
+            and preempted.cursor == SERVE_CKPT_EVERY
+            and server.counters["preempted"] == 1):
+        raise AssertionError(f"serve synthetic: expected Preempted at "
+                             f"cursor {SERVE_CKPT_EVERY}, got {preempted!r}")
+    server2 = SGLServer(chunked("run")).start()
+    try:
+        resumed = server2.submit(request).result(timeout=WAIT_S)
+    finally:
+        server2.stop(timeout=WAIT_S)
+    if not (resumed.resumed_from == SERVE_CKPT_EVERY
+            and server2.counters["resumed"] == 1):
+        raise AssertionError(f"serve synthetic: resumed_from "
+                             f"{resumed.resumed_from}")
+    if not same_bits(resumed.result, ref.result):
+        raise AssertionError("serve synthetic: the resumed path differs "
+                             "from the uninterrupted run")
+
+    # One lambda at a time, so that only the last point of the prefix can
+    # be the one the budget cut short.
+    budget = SGLServer(ServeConfig(default_solver=cfg, batch_lambdas=1,
+                                   epoch_budget=SERVE_EPOCH_BUDGET)).start()
+    try:
+        degraded = budget.submit(PathRequest("b", problem, grid)).exception(
+            timeout=WAIT_S)
+    finally:
+        budget.stop(timeout=WAIT_S)
+    if not isinstance(degraded, Degraded):
+        raise AssertionError(f"serve synthetic: expected Degraded, got "
+                             f"{degraded!r}")
+    prefix = degraded.result
+    k = len(prefix.lambdas)
+    if not (degraded.reason == "epoch_budget" and 0 < k < len(grid)
+            and budget.counters["degraded"] == 1
+            and np.isfinite(degraded.gap)
+            and (prefix.gaps[:-1] <= tol).all()
+            and np.isfinite(prefix.gaps).all()
+            and budget.store.stats()["exact_entries"] == 0):
+        raise AssertionError(f"serve synthetic: bad Degraded result: "
+                             f"{degraded.reason} {k} {prefix.gaps}")
+
+    faulty = SGLServer(ServeConfig(default_solver=cfg, max_retries=2,
+                                   retry_backoff_s=0.01)).start()
+    plan = FaultPlan((FaultSpec("kernels.epochs", "raise",
+                                hits=tuple(range(1000))),))
+    before = _util.launch_counts()
+    try:
+        with inject(plan) as fired, _PlainCalls() as plain:
+            failure = faulty.submit(PathRequest("f", problem, grid)).exception(
+                timeout=WAIT_S)
+    finally:
+        faulty.stop(timeout=WAIT_S)
+    fault_launches = {k: v - before[k] for k, v in _util.launch_counts().items()}
+    session = next(iter(faulty.cache._sessions.values()))
+    if not (isinstance(failure, ServeError)
+            and isinstance(failure.cause, KernelLaunchError)
+            and faulty.counters["retries"] == 2
+            and faulty.counters["failed"] == 1
+            and fired.count("kernels.epochs") == 3
+            and session.kernel_demotions == 0
+            and session.solver_backend == session.backend == "cuda"
+            and fault_launches["bcd_epoch"] == 0
+            and not any(plain.calls.values())):
+        raise AssertionError(
+            f"serve synthetic: injected launch failure ended as "
+            f"{failure!r} (cause {getattr(failure, 'cause', None)!r}), "
+            f"retries {faulty.counters['retries']}, failed "
+            f"{faulty.counters['failed']}, fired {fired.count()}, "
+            f"demotions {session.kernel_demotions}, plain calls "
+            f"{plain.calls}, launches {fault_launches}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _util.launch_counts()
+    for name in LSQ_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"serve synthetic: kernel {name} never "
+                                 "launched")
+    record = dict(
+        problem="synthetic", points=len(grid), tol=tol, wall_s=wall,
+        uninterrupted_s=t_ref, launches=counts,
+        preempted_at=preempted.cursor, resumed_from=resumed.resumed_from,
+        resumed_same_bits=True, requests_detail=[
+            request_record(ref, 0.0), request_record(resumed, 0.0)],
+        degraded=dict(reason=degraded.reason, prefix=k, budget=
+                      SERVE_EPOCH_BUDGET, gap=degraded.gap,
+                      counter=budget.counters["degraded"]),
+        injected=dict(error=type(failure).__name__,
+                      cause=type(failure.cause).__name__,
+                      retries=faulty.counters["retries"],
+                      failed=faulty.counters["failed"],
+                      fired=fired.count("kernels.epochs"),
+                      kernel_demotions=session.kernel_demotions,
+                      plain_calls=sum(plain.calls.values()),
+                      launches=fault_launches),
+        resumed=server2.counters["resumed"],
+        path_solves=(ref_server.counters["path_solves"]
+                     + server2.counters["path_solves"]))
+    return counts, record
+
+
+def run_elastic(X, y, sizes):
+    """The elastic-net reduction on the synthetic problem: the augmented
+    design [X; sqrt(lam2) I] (n = 10,100 rows) on the card, the grid's
+    leading points through the kernels, then again on the plain backends
+    (masks under the flip rule, gaps <= tol).  Prints the BCD geometry the
+    tall design gets.  Returns (launch counts, the phase's record)."""
+    import torch
+    from repro_torch.core import SGLSession, SolverConfig, make_elastic_problem
+    from repro_torch.core.session import lambda_grid
+    from repro_torch.core.solver import _bucket
+    from repro_torch.kernels.bcd_epoch import bcd_epoch_geometry
+
+    t0 = time.perf_counter()
+    problem = make_elastic_problem(X, y, sizes, tau=ELASTIC["tau"],
+                                   lam2=ELASTIC["lam2"])
+    setup = time.perf_counter() - t0
+    cfg = SolverConfig(tol=ELASTIC["tol"])
+    session = SGLSession(problem, cfg)
+    lambdas = lambda_grid(session.lam_max, T=ELASTIC["T"],
+                          delta=ELASTIC["delta"])[:ELASTIC["solve"]]
+    res, counts, wall = drive("elastic", session, lambdas, LSQ_KERNELS,
+                              ("bcd_epoch_logistic", "screening_scores"))
+    if not (res.gaps <= ELASTIC["tol"]).all():
+        raise AssertionError(f"elastic: gaps above tol: {res.gaps}")
+    n, ng = problem.n, problem.ng
+    buckets = sorted({_bucket(max(int(g.sum()), 1))
+                      for g in res.group_active})
+    geometry = {}
+    for B in (1, 4):
+        for Gb in buckets:
+            geo = bcd_epoch_geometry(B, Gb, n, ng)
+            geometry[f"B={B} Gb={Gb}"] = dict(
+                cluster=geo.cluster, slice=geo.slices[0][1] - geo.slices[0][0],
+                ring_stages=geo.stages, stage_doubles=geo.stage,
+                kmax=geo.kmax, beta_in_smem=geo.beta_in_smem,
+                smem_bytes=geo.smem_bytes)
+    log(f"path elastic bcd geometry (n={n}, ng={ng}): {json.dumps(geometry)}")
+
+    def margins_at(t):
+        beta_prev = res.betas[t - 1] if t else 0.0 * res.betas[0]
+        return seq_margins(problem, beta_prev, float(lambdas[t]))
+
+    t1 = time.perf_counter()
+    plain_rerun("elastic", problem, cfg, lambdas[:ELASTIC["plain"]], res,
+                ELASTIC["plain"], margins_at)
+    record = dict(n=n, p=problem.G * ng, G=problem.G, lam2=ELASTIC["lam2"],
+                  design_mb=problem.X.numel() * 8 / 1e6, setup_s=setup,
+                  points=len(lambdas), wall_s=wall, plain_s=time.perf_counter()
+                  - t1, epochs=res.epochs.tolist(), gaps=res.gaps.tolist(),
+                  launches=counts, geometry=geometry)
+    del problem, session
+    torch.cuda.empty_cache()
+    return counts, record
+
+
 def main() -> int:
     import torch
 
@@ -1112,9 +1607,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.losses import resolve_loss
 
+    global CARD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    CARD = smi
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -1149,9 +1646,14 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
 
-    add(run_path(CLIMATE, climate)[0])
+    counts, _, _, climate_grid, climate_plain = run_path(CLIMATE, climate)
+    add(counts)
     add(run_path(CLIMATE_LOGISTIC, climate_logistic)[0])
-    del climate, climate_logistic
+    del climate_logistic
+    counts, serve_climate = run_serve_climate(climate, climate_grid,
+                                              climate_plain)
+    add(counts)
+    del climate
     torch.cuda.empty_cache()
 
     check_harness_cases()
@@ -1162,10 +1664,20 @@ def main() -> int:
     synthetic = make_problem(X, y, sizes, tau=SYNTHETIC["tau"])
     check_synthetic_scores(synthetic, records)
     check_synthetic_bcd(synthetic, records)
-    counts, untraced, wall = run_path(SYNTHETIC, synthetic)
+    counts, untraced, wall, synthetic_grid, _ = run_path(SYNTHETIC, synthetic)
     add(counts)
     add(run_traced(SYNTHETIC, synthetic, untraced, wall))
     add(run_rules(SYNTHETIC_RULES, synthetic))
+    counts, serve_synthetic = run_serve_synthetic(synthetic, synthetic_grid)
+    add(counts)
+    phase_line("serve", dict(
+        climate=serve_climate, synthetic=serve_synthetic,
+        seconds=serve_climate["wall_s"] + serve_climate["compare_s"]
+        + serve_synthetic["wall_s"]))
+    del synthetic
+    counts, elastic = run_elastic(X, y, sizes)
+    add(counts)
+    phase_line("elastic", elastic)
 
     kernels = [dict(records[k], launches=launches[k]) for k in
                ("corr", "dual_norm", "bcd_epoch", "screening_scores",

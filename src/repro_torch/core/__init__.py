@@ -56,13 +56,17 @@ from .solver import (  # noqa: E402
     check_rule_loss,
     resolve_backend,
     screen_round,
+    solve,
 )
-from .session import PathResult, SGLSession, SolverConfig, lambda_grid  # noqa: E402
+from .session import SGLSession, SolverConfig  # noqa: E402
+from .elastic import elastic_objective, make_elastic_problem  # noqa: E402
+from .path import PathResult, lambda_grid, solve_path  # noqa: E402
 
 __all__ = [
     "ensure_x64",
     "SGLProblem", "make_problem", "problem_from_grouped",
     "SGLSession", "SolverConfig", "PathResult", "lambda_grid",
+    "solve", "solve_path", "make_elastic_problem", "elastic_objective",
     "lambda_max", "dual_scale", "duality_gap", "primal", "dual",
     "primal_loss", "dual_loss", "duality_gap_loss", "dual_scale_loss",
     "lambda_max_loss",

@@ -38,7 +38,21 @@ sites; ``kernel_launch`` wraps the dispatches on the ``"cuda"`` backend.  A
 span's attributes are values the host already holds: a span never reads a
 tensor back or synchronises the device.
 
-Not in this slice: the mesh strategy, solve budgets and fault injection.
+Fault protocol (:mod:`repro_torch.faults`), as in the reference: a
+certified round whose gap is not finite is discarded — its masks and dual
+point are never adopted — and the round is re-run, from the best finite
+certified iterate when beta itself went non-finite; three such rounds in a
+row raise :class:`~repro_torch.faults.errors.NumericsError`
+(``nonfinite_rounds`` counts them).  A :class:`~repro_torch.faults.budget.
+SolveBudget` on ``session.budget`` is checked after every certified round
+and between path points; a trip returns the certified prefix with
+``degraded`` set.  The injection sites ``core.round``, ``kernels.screen``,
+``kernels.epochs`` and ``core.epochs`` fire where the reference's do.  A
+failed launch, injected or real, raises
+:class:`~repro_torch.faults.errors.KernelLaunchError`: the reference's
+demotion to its XLA path is not ported, and ``kernel_demotions`` stays 0.
+
+Not in this slice: the mesh strategy.
 """
 from __future__ import annotations
 
@@ -68,6 +82,8 @@ from .solver import (
 )
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..faults.errors import KernelLaunchError, NumericsError
+from ..faults.inject import fire as _fire_fault
 from ..kernels._util import resolve_device
 from ..losses import Loss, resolve_loss
 from ..obs import trace as obs_trace
@@ -114,6 +130,18 @@ class SolverConfig(_SolverConfigFields):
         resolve_loss(self.loss)
         return self
 
+    def cache_token(self) -> tuple:
+        """Hashable identity of every solver knob, the key of the serving
+        layer's session cache (with the problem digest).  ``rule`` and
+        ``loss`` are resolved through their registries and keyed by their
+        ``repr`` (frozen dataclasses: the repr carries every parameter), so
+        a registered name and the equal object give the same token, and two
+        losses never share one."""
+        d = self._asdict()
+        d["rule"] = repr(resolve_rule(d["rule"]))
+        d["loss"] = repr(resolve_loss(d["loss"]))
+        return tuple(sorted(d.items()))
+
 
 def lambda_grid(lam_max: float, T: int = 100, delta: float = 3.0) -> np.ndarray:
     """lambda_t = lambda_max * 10^(-delta t / (T-1)), t = 0..T-1 (paper §7.1)."""
@@ -154,6 +182,11 @@ class PathResult(NamedTuple):
     kernel_demotions: int = 0      # launches demoted to a plain version:
                                    #   the port has no demotion (a failed
                                    #   launch raises), so always 0
+    degraded: str = ""             # "" = full path; "deadline" |
+                                   #   "epoch_budget" = a SolveBudget
+                                   #   tripped and the arrays hold only the
+                                   #   prefix of lambdas actually solved,
+                                   #   each with its honest certified gap
 
 
 def _batch_reduced_gaps(Xt, fmask_b, bsub, resid, w, y, tau: float, lam_b,
@@ -186,6 +219,13 @@ def _launch_span(backend: str):
     dispatches (the reference's ``_launch_span`` for ``"pallas"``)."""
     return (obs_trace.span("kernel_launch") if backend == "cuda"
             else obs_trace.NOOP)
+
+
+def _fire_epoch_launch_fault() -> None:
+    """Injection hook at the fused epoch-kernel dispatch sites."""
+    for s in _fire_fault("kernels.epochs"):
+        if s.kind == "raise":
+            raise KernelLaunchError("injected epoch-kernel launch failure")
 
 
 def _problem_to(problem: SGLProblem, device: torch.device) -> SGLProblem:
@@ -241,6 +281,13 @@ class SGLSession:
         self._rounds_since_full = 0
         self.batched_lambdas = 0
         self.fused_epoch_launches = 0
+        # Fault accounting and the per-request budget: certified rounds
+        # discarded for a non-finite gap, launches demoted to a plain version
+        # (none: a failed launch raises), and the optional SolveBudget the
+        # serving layer attaches for the duration of one request.
+        self.nonfinite_rounds = 0
+        self.kernel_demotions = 0
+        self.budget = None
         if xt_pre is not None:
             expect = (problem.G * problem.ng, problem.n)
             if tuple(xt_pre.shape) != expect:
@@ -275,24 +322,48 @@ class SGLSession:
     def _certified_round(self, beta, lam_: float, lam_max: float, rule,
                          caches: Optional[SolveCaches] = None) -> RoundResult:
         """One FULL certified round; refreshes the compact-round reference
-        on ``caches``."""
+        on ``caches`` only when the round's gap is finite (a corrupted
+        round never becomes the compact rounds' bound anchor).
+
+        Fault sites: ``core.round`` (nan/inf corruption of this round's
+        outputs, stalls) and ``kernels.screen`` (a raise fails the launch
+        with :class:`KernelLaunchError`; nothing is retried on a plain
+        version)."""
         caches = self.caches if caches is None else caches
         problem = self.problem
+        specs = _fire_fault("core.round")   # stall kinds sleep in fire()
         self.rounds += 1
         self.full_rounds += 1
         self._rounds_since_full = 0
         self.round_flops += 4.0 * problem.n * problem.G * problem.ng
         with obs_trace.span("round") as _sp:
             _sp.set("compact", False)
+            for s in _fire_fault("kernels.screen"):
+                if s.kind == "raise":
+                    raise KernelLaunchError(
+                        "injected screening-kernel launch failure")
             with _launch_span(self.backend):
                 res, resid, terms = _screen_round(
                     problem, beta, lam_, lam_max, rule, self.backend,
                     self.xt_pre,
                     loss=None if self.loss.name == "lsq" else self.loss)
-        if not np.isfinite(float(res.gap)):
-            raise FloatingPointError(
-                f"non-finite certified duality gap at lambda={lam_:.6e}")
-        caches.set_refs(problem, resid, terms)
+        for s in specs:
+            if s.kind in ("nan", "inf"):
+                bad = float("nan") if s.kind == "nan" else float("inf")
+                field = s.field or "theta"
+                if field == "resid":
+                    resid = resid * bad
+                elif field == "corr":
+                    terms = terms * bad
+                else:
+                    res = res._replace(theta=res.theta * bad)
+                # Real corruption in resid/corr/theta reaches the gap through
+                # the same dataflow: the gap stays the corruption detector.
+                res = res._replace(gap=res.gap * bad)
+        if np.isfinite(float(res.gap)):
+            caches.set_refs(problem, resid, terms)
+        else:
+            self.nonfinite_rounds += 1
         return res
 
     def _compact_round(self, beta, lam_: float, group_active: np.ndarray,
@@ -430,6 +501,13 @@ class SGLSession:
         resid_nc = None
         z_nc = None
         lam_b1 = torch.full((1,), lam_, dtype=dtype, device=dev)
+        # Fault state: consecutive non-finite certified rounds (3 raise
+        # NumericsError), the best finite certified iterate to rewind to when
+        # beta itself is corrupted, and the budget-trip reason.
+        nonfinite_run = 0
+        best_gap: Optional[float] = None
+        best_beta = None
+        degraded: Optional[str] = None
 
         while epochs_done < max_epochs:
             if round_res is None:
@@ -447,8 +525,10 @@ class SGLSession:
                 if round_res is None:
                     round_res = self._certified_round(beta, lam_, lam_max,
                                                       rule, caches=caches)
-                    if not cfg.compact and lsq:
-                        # Reset the carried residual's drift every full round.
+                    if (not cfg.compact and lsq
+                            and np.isfinite(float(round_res.gap))):
+                        # Reset the carried residual's drift every full round
+                        # (a corrupted round left the previous reference).
                         resid_nc = caches.resid_ref.clone()
                     elif not cfg.compact:
                         # The round's reference is rho, not z: recompute the
@@ -463,13 +543,39 @@ class SGLSession:
             round_res = None
             gap_history.append((epochs_done, gap_r))
             if not np.isfinite(gap_r):
-                raise FloatingPointError(
-                    f"non-finite certified duality gap at lambda={lam_:.6e}")
+                # Corrupted round: never adopt its masks or theta.  With a
+                # finite beta the corruption was round-local and the round
+                # simply re-runs; a non-finite beta rewinds to the best
+                # finite certified iterate and the carries are rebuilt.
+                nonfinite_run += 1
+                if nonfinite_run >= 3:
+                    raise NumericsError(
+                        f"{nonfinite_run} consecutive non-finite certified "
+                        f"rounds at lambda={lam_:.3e}; rewind could not "
+                        "recover a finite trajectory")
+                if not bool(torch.isfinite(beta).all()):
+                    beta = (best_beta if best_beta is not None
+                            else torch.zeros((G, ng), dtype=dtype, device=dev))
+                    resid_nc = None
+                    z_nc = None
+                continue
+            nonfinite_run = 0
+            if best_gap is None or gap_r < best_gap:
+                best_gap = gap_r
+                best_beta = beta
             gap, theta = gap_r, theta_r
 
             if gap <= tol:
                 # A converging round's masks are not applied (see reference).
                 break
+
+            if self.budget is not None:
+                reason = self.budget.exceeded()
+                if reason is not None:
+                    # Tripped at a certified boundary: gap and theta are the
+                    # honest full-problem values of the current beta.
+                    degraded = reason
+                    break
 
             if rule.is_dynamic:
                 n_g0 = int(group_active.sum())
@@ -496,6 +602,8 @@ class SGLSession:
             active_history.append((epochs_done, int(group_active.sum()),
                                    int(feat_active.sum())))
 
+            epochs_before = epochs_done
+            fused = self.solver_backend == "cuda" and self._fused_epochs
             if cfg.compact:
                 _, take, Xt, Lg, w, gmask = caches.gather(problem, group_active)
                 xt_rows = None
@@ -504,6 +612,8 @@ class SGLSession:
                                                     self.xt_pre)
                 with obs_trace.span("epoch_block"), \
                         _launch_span(self.solver_backend):
+                    if fused:
+                        _fire_epoch_launch_fault()
                     if lsq:
                         beta, k_done, _ = _inner_rounds(
                             Xt, Lg, w, problem.y, beta,
@@ -517,14 +627,15 @@ class SGLSession:
                             tol, self.loss, check, max_blocks,
                             self.solver_backend, xt_rows)
                 epochs_done += check * int(k_done)
-                if self.solver_backend == "cuda" and self._fused_epochs:
+                if fused:
                     self.fused_epoch_launches += int(k_done)
             else:
                 if Xt_full is None:
                     Xt_full = problem.X.permute(1, 0, 2).contiguous()
                 fmask = self._mask(feat_active).to(dtype)
                 Lg = problem.Lg * self._mask(group_active).to(dtype)
-                fused = self.solver_backend == "cuda" and self._fused_epochs
+                if fused:
+                    _fire_epoch_launch_fault()
                 if lsq:
                     if resid_nc is None:
                         resid_nc = problem.y - torch.einsum(
@@ -560,10 +671,19 @@ class SGLSession:
                     self.fused_epoch_launches += 1
                 epochs_done += f_ce
 
+            if self.budget is not None:
+                self.budget.note_epochs(epochs_done - epochs_before)
+            # Injection hook: corrupt the iterate after an epoch block; the
+            # next certified round sees it through the real dataflow.
+            for s in _fire_fault("core.epochs"):
+                if s.kind in ("nan", "inf"):
+                    beta = beta * (float("nan") if s.kind == "nan"
+                                   else float("inf"))
+
         return SolveResult(beta=beta, theta=theta, gap=gap,
                            n_epochs=epochs_done, group_active=group_active,
                            feat_active=feat_active, gap_history=gap_history,
-                           active_history=active_history)
+                           active_history=active_history, degraded=degraded)
 
     def _solve_batch_bcd(self, lams, beta0, certs, caches: SolveCaches):
         """Solve B consecutive path points in one batched run.
@@ -608,6 +728,7 @@ class SGLSession:
         final_g = [real_grp.copy() if done[b] else None for b in range(B)]
         final_f = [fm_full.copy() if done[b] else None for b in range(B)]
         final_theta = [certs[b].theta for b in range(B)]
+        degraded_b = [None] * B
 
         def results():
             return [SolveResult(beta=final_beta[b], theta=final_theta[b],
@@ -615,7 +736,8 @@ class SGLSession:
                                 n_epochs=int(epochs_b[b]),
                                 group_active=final_g[b],
                                 feat_active=final_f[b],
-                                gap_history=gap_hist[b], active_history=[])
+                                gap_history=gap_hist[b], active_history=[],
+                                degraded=degraded_b[b])
                     for b in range(B)]
 
         if done.all():
@@ -648,9 +770,17 @@ class SGLSession:
 
         step = 0
         while not done.all() and step < cfg.max_epochs:
+            if self.budget is not None:
+                reason = self.budget.exceeded()
+                if reason is not None:
+                    for b in range(B):
+                        if not done[b]:
+                            degraded_b[b] = reason
+                    break
             with obs_trace.span("epoch_block"), \
                     _launch_span(self.solver_backend):
                 if self.solver_backend == "cuda":
+                    _fire_epoch_launch_fault()
                     bsub, resid = kops.bcd_epochs_fused(
                         Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
                     self.fused_epoch_launches += 1
@@ -658,6 +788,8 @@ class SGLSession:
                     bsub, resid = kref.bcd_epochs_ref(
                         Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
             step += block
+            if self.budget is not None:
+                self.budget.note_epochs(block * B)
             red = _batch_reduced_gaps(Xt, fm_b, bsub, resid, w, y, tau, lam_b,
                                       backend=self.solver_backend,
                                       xt_rows=xt_rows).cpu().numpy()
@@ -691,10 +823,12 @@ class SGLSession:
                     rres = self._certified_round(beta_full, lam_f, lam_max,
                                                  self.rule, caches=caches)
                 gap_r = float(rres.gap)
-                if not np.isfinite(gap_r):
-                    raise FloatingPointError(
-                        f"non-finite certified duality gap at lambda={lam_f:.6e}")
                 gap_hist[b].append((step, gap_r))
+                if not np.isfinite(gap_r):
+                    # Corrupted round: adopt nothing.  Rounds leave the batch
+                    # buffer untouched, so the next cadence round re-runs
+                    # from healthy state.
+                    continue
                 final_theta[b] = rres.theta
                 if gap_r <= tol:
                     done[b] = True
@@ -755,7 +889,7 @@ class SGLSession:
         lam_max = self.lam_max
         if lambdas is None:
             lambdas = lambda_grid(lam_max, T=T, delta=delta)
-        lambdas = np.asarray(lambdas, float)
+        lambdas = np.ascontiguousarray(lambdas, dtype=float)
         T_ = len(lambdas)
 
         G, ng = problem.G, problem.ng
@@ -811,15 +945,29 @@ class SGLSession:
         batch_ok = (sequential and rule.name == "gap" and batch_lambdas > 1
                     and self.loss.name == "lsq")
 
+        path_degraded = ""
         t = 0
         while t < T_:
+            if self.budget is not None:
+                reason = self.budget.exceeded()
+                if reason is not None:
+                    # Tripped between lambdas: return the certified prefix.
+                    path_degraded = reason
+                    break
             lam_ = float(lambdas[t])
             ep_prev = int(epochs[t - 1]) if t > 0 else int(prev_epochs or 0)
             first_round = None
             n_seq_active = n_groups
             if sequential and rule.supports_sequential:
                 first_round = self.screen(lam_, beta, rule=rule)
-                if screening_rule:
+                if not np.isfinite(float(first_round.gap)):
+                    # Corrupted sequential round: refuse its masks and re-run
+                    # it once at the same beta; still bad, solve this lambda
+                    # with no sequential certificate at all.
+                    first_round = self.screen(lam_, beta, rule=rule)
+                    if not np.isfinite(float(first_round.gap)):
+                        first_round = None
+                if first_round is not None and screening_rule:
                     n_seq_active = int(first_round.group_active.sum())
                     seq_scr[t] = n_groups - n_seq_active
 
@@ -836,6 +984,10 @@ class SGLSession:
                 while len(certs) < batch_lambdas and t + len(certs) < T_:
                     k = t + len(certs)
                     ck = self.screen(float(lambdas[k]), beta, rule=rule)
+                    if not np.isfinite(float(ck.gap)):
+                        # A corrupted probe never enters the batch; lambda k
+                        # re-certifies later from a warmer beta.
+                        break
                     cg = ck.group_active.cpu().numpy()
                     if _bucket(max(int((union_g | cg).sum()), 1)) <= 2 * bucket0:
                         union_g |= cg
@@ -853,6 +1005,12 @@ class SGLSession:
                                n_groups - int(seq_scr[t + j]))
                     beta = run[-1].beta
                     t += len(certs)
+                    deg = next((r.degraded for r in run if r.degraded), None)
+                    if deg is not None:
+                        # Partly solved lambdas keep their honest
+                        # last-certified gaps; the unattempted tail is dropped.
+                        path_degraded = deg
+                        break
                     continue
 
             if cfg.check_every == "auto":
@@ -875,6 +1033,18 @@ class SGLSession:
                 n_gathers_total += lam_caches.n_gathers
             record(t, res, first_round, n_seq_active)
             t += 1
+            if res.degraded:
+                path_degraded = res.degraded
+                break
+
+        if path_degraded and t < T_:
+            # Truncate to the certified prefix: a degraded path never pads
+            # with zeros that could pass for solved lambdas.
+            lambdas = lambdas[:t]
+            betas, gaps, epochs = betas[:t], gaps[:t], epochs[:t]
+            gfrac, ffrac = gfrac[:t], ffrac[:t]
+            g_act, f_act = g_act[:t], f_act[:t]
+            seq_scr, dyn_scr = seq_scr[:t], dyn_scr[:t]
 
         return PathResult(
             lambdas=lambdas, betas=betas, gaps=gaps, epochs=epochs,
@@ -893,4 +1063,6 @@ class SGLSession:
             batched_lambdas=self.batched_lambdas - batched0,
             rule_name=rule.name,
             certificates_safe=rule.is_safe,
+            kernel_demotions=self.kernel_demotions,
+            degraded=path_degraded,
         )

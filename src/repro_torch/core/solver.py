@@ -26,6 +26,7 @@ loop that reads the reduced gap after every block.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -46,6 +47,7 @@ _M_GATHERS = REGISTRY.counter(
          "across all SolveCaches instances in the process")
 
 __all__ = [
+    "solve",
     "SolveResult",
     "SolveCaches",
     "RoundResult",
@@ -81,6 +83,9 @@ class SolveResult(NamedTuple):
     feat_active: np.ndarray    # (G, ng) final active mask
     gap_history: list
     active_history: list       # [(epoch, n_groups_active, n_feats_active)]
+    degraded: Optional[str] = None  # budget-trip reason ("deadline" |
+                                    #   "epoch_budget"); gap stays the
+                                    #   honest last-certified value
 
 
 class SolveCaches:
@@ -486,3 +491,60 @@ def _gather_static(problem: SGLProblem, group_active: np.ndarray):
     Xt = problem.X.index_select(1, take_t).permute(1, 0, 2).contiguous()
     return (idx, take_t, Xt, problem.Lg[take_t], problem.w[take_t],
             torch.as_tensor(gmask, dtype=problem.X.dtype).to(dev))
+
+
+# ----------------------------------------------------------------------------
+# The one-lambda entry point (deprecated wrapper)
+# ----------------------------------------------------------------------------
+
+def solve(
+    problem: SGLProblem,
+    lam_: float,
+    beta0=None,
+    tol: float = 1e-8,
+    max_epochs: int = 10_000,
+    f_ce: int = 10,
+    rule="gap",
+    lam_max: Optional[float] = None,
+    compact: bool = True,
+    inner_rounds: int = 5,
+    check_every: Optional[int] = None,
+    first_round: Optional[RoundResult] = None,
+    caches: Optional[SolveCaches] = None,
+    screen_backend: str = "auto",
+    solver_backend: str = "auto",
+    device=None,
+) -> SolveResult:
+    """Solve one SGL instance at regularisation ``lam_``.
+
+    .. deprecated::
+        Thin wrapper over the session API: the loose kwargs map onto
+        :class:`repro_torch.core.session.SolverConfig` fields of the same
+        names and the solve delegates to
+        :meth:`repro_torch.core.session.SGLSession.solve`.  Prefer::
+
+            session = SGLSession(problem, SolverConfig(tol=1e-8))
+            res = session.solve(lam_)
+
+    ``device``: where the session runs (the card unless named).
+    """
+    if isinstance(check_every, str):
+        raise ValueError(
+            "check_every must be an int or None for solve(); "
+            "'auto' scheduling exists only on solve_path()"
+        )
+    from .session import SGLSession, SolverConfig
+
+    warnings.warn(
+        "repro_torch.core.solve() is deprecated; use "
+        "SGLSession(problem, SolverConfig(...)).solve(lam_)",
+        DeprecationWarning, stacklevel=2,
+    )
+    cfg = SolverConfig(
+        tol=tol, max_epochs=max_epochs, f_ce=f_ce, rule=rule,
+        compact=compact, inner_rounds=inner_rounds, check_every=check_every,
+        screen_backend=screen_backend, solver_backend=solver_backend,
+    )
+    session = SGLSession(problem, cfg, device=device, caches=caches)
+    return session.solve(lam_, beta0=beta0, first_round=first_round,
+                         lam_max=lam_max)

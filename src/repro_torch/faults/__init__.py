@@ -1,0 +1,51 @@
+"""repro_torch.faults — deterministic fault injection + graceful degradation.
+
+Counterpart of ``repro/faults`` (less the chaos matrix).  Three pieces:
+
+* **Harness** — :class:`FaultPlan` / :class:`FaultSpec` value objects and
+  the :func:`inject` context manager: seeded, site-addressable faults
+  (numeric corruption, kernel-launch failure, stalls, worker kills,
+  checkpoint truncation/bit-flips, store poisoning) with per-site firing
+  schedules, so runs are reproducible bit for bit.
+* **Error taxonomy** — :class:`Degraded`, :class:`ServeError`,
+  :class:`WorkerCrash`, :class:`NumericsError`,
+  :class:`KernelLaunchError`, :class:`CheckpointCorrupt` (plus
+  :class:`repro_torch.serve.Preempted`): every failure a future can
+  resolve to.
+* **Budgets** — :class:`SolveBudget`: per-request deadlines and epoch
+  caps checked at host-synced round boundaries.
+
+A failed kernel launch, injected or real, raises
+:class:`KernelLaunchError` out of the session: the port has no demotion to
+the plain versions.
+"""
+from .budget import SolveBudget
+from .errors import (
+    CheckpointCorrupt,
+    Degraded,
+    KernelLaunchError,
+    NumericsError,
+    ServeError,
+    WorkerCrash,
+)
+from .inject import FaultLog, FiredEvent, active_plan, fire, inject
+from .plan import KINDS, SITES, FaultPlan, FaultSpec
+
+__all__ = [
+    "FaultPlan",
+    "FaultSpec",
+    "FaultLog",
+    "FiredEvent",
+    "SITES",
+    "KINDS",
+    "inject",
+    "fire",
+    "active_plan",
+    "SolveBudget",
+    "Degraded",
+    "ServeError",
+    "WorkerCrash",
+    "NumericsError",
+    "KernelLaunchError",
+    "CheckpointCorrupt",
+]

@@ -1,7 +1,8 @@
 """Device predicates, launch geometry and launch counts for the CUDA kernels.
 
-The counterpart of ``repro/kernels/_util.py`` (it imports only the leaf
-:mod:`repro_torch.obs.metrics` of this package): ``on_hopper`` replaces
+The counterpart of ``repro/kernels/_util.py`` (it imports only the leaves
+:mod:`repro_torch.obs.metrics` and :mod:`repro_torch.faults.errors` of this
+package): ``on_hopper`` replaces
 ``on_tpu`` / ``default_interpret``, :class:`LaunchSpec` records the grid,
 block and shared memory every wrapper launches with (built by the kernel
 module's ``*_launch_spec`` function and passed to the launch as is), and
@@ -16,6 +17,7 @@ from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from ..faults.errors import KernelLaunchError
 from ..obs.metrics import REGISTRY
 
 __all__ = [
@@ -125,10 +127,12 @@ def check_operand(name: str, t: torch.Tensor, shape: Tuple[int, ...],
 
 
 def raise_on_launch_error(lib, prefix: str, code: int) -> None:
-    """Raise with the CUDA error string when a launcher returned non-zero."""
+    """Raise :class:`~repro_torch.faults.errors.KernelLaunchError` with the
+    CUDA error string when a launcher returned non-zero."""
     if code != 0:
         msg = getattr(lib, f"{prefix}_error_string")(code).decode()
-        raise RuntimeError(f"{prefix} kernel launch failed: {msg} ({code})")
+        raise KernelLaunchError(
+            f"{prefix} kernel launch failed: {msg} ({code})")
 
 
 def stream_handle() -> int:

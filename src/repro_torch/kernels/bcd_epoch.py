@@ -24,6 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..faults.errors import KernelLaunchError
 from . import _build
 from ._util import (
     LaunchCounter,
@@ -230,7 +231,7 @@ def bcd_epoch_cuda(Xt, Lg, w, fmask, lam_b, tau: float, beta, carry,
     # beta kept in global memory is updated in place in the output.
     beta_out = torch.empty_like(beta) if geo.beta_in_smem else beta.clone()
     if _active_clusters(name, geo.cluster, geo.smem_bytes) < 1:
-        raise RuntimeError(f"{name}: a cluster of {geo.cluster} CTAs with "
+        raise KernelLaunchError(f"{name}: a cluster of {geo.cluster} CTAs with "
                            f"{geo.smem_bytes} B of shared memory each cannot "
                            "run on this device")
     lib = _lib(name)

@@ -11,14 +11,15 @@ Counterpart of ``repro/obs/check.py``.  Two passes, reported as
   doctored schema still fails loudly.
 
 * **OB002 — span coverage.**  Every span site declared in
-  :data:`repro_torch.obs.trace.SPAN_SITES` must fire on a smoke run of the
-  port's own path: a small synthetic ``SGLSession.solve_path`` on the
-  device and backend the caller names (the card and the ``"cuda"`` backend
-  by default; the CPU in the tests, where the ``"cuda"`` backend's
-  dispatches run the kernels' plain versions).  The reference's smoke is a
-  two-request serve sequence, which waits for the serving layer's port.
-  The tracer's exact per-site counters are used (sampling thins only the
-  recorded spans).
+  :data:`repro_torch.obs.trace.SPAN_SITES` must fire on a smoke run: the
+  reference's two-request serve sequence (the second request, a tail of
+  the same grid, takes the certificate store's warm-start admission path),
+  which traverses request → coalesce → store → cache → warm_eval → path →
+  lambda → round → epoch_block → kernel_launch, on the device and backend
+  the caller names (the card and the ``"cuda"`` backend by default; the CPU
+  in the tests, where the ``"cuda"`` backend's dispatches run the kernels'
+  plain versions).  The tracer's exact per-site counters are used
+  (sampling thins only the recorded spans).
 
 Both passes accept injected inputs (``schema=``, ``counts=``) so tests can
 prove each finding fires on a seeded fixture without running the smoke.
@@ -82,15 +83,19 @@ def check_schema(
 def run_smoke(device=None, backend: str = "cuda") -> Dict[str, int]:
     """Exercise every declared span site; return exact per-site counts.
 
-    Solves a four-point path of a small synthetic problem on ``device``
-    (the card unless named) with both backends set to ``backend``.  Tracer
-    state (enabled flag, buffers) is saved and restored, so this is safe
-    to call from a process that is itself tracing.
+    Runs a two-request serve sequence against a private server on
+    ``device`` (the card unless named) with both backends set to
+    ``backend``: the first request exercises the whole solve pipeline, the
+    second — the same problem, a tail of the grid — takes the certificate
+    store's warm-start admission path.  Tracer state (enabled flag,
+    buffers) is saved and restored, so this is safe to call from a process
+    that is itself tracing.
     """
-    from ..core import SGLSession, SolverConfig, make_problem
+    from ..core import SolverConfig, make_problem, sgl
     from ..core.session import lambda_grid
     from ..data import make_synthetic
     from ..kernels._util import resolve_device
+    from ..serve import PathRequest, ServeConfig, SGLServer
 
     dev = resolve_device(device)
     was_enabled = trace.TRACER.enabled
@@ -102,8 +107,16 @@ def run_smoke(device=None, backend: str = "cuda") -> Dict[str, int]:
         prob = make_problem(X, y, sizes, tau=0.3, device=dev)
         cfg = SolverConfig(tol=1e-6, max_epochs=500, screen_backend=backend,
                            solver_backend=backend)
-        session = SGLSession(prob, cfg, device=dev)
-        session.solve_path(lambda_grid(session.lam_max, T=4, delta=1.5))
+        grid = lambda_grid(float(sgl.lambda_max(prob)), T=4, delta=1.5)
+        server = SGLServer(ServeConfig(default_solver=cfg,
+                                       coalesce_window_s=0.05,
+                                       device=dev)).start()
+        try:
+            server.submit(PathRequest("obs-smoke-a", prob, grid)).result(600)
+            server.submit(
+                PathRequest("obs-smoke-b", prob, grid[1:])).result(600)
+        finally:
+            server.stop()
         return dict(trace.TRACER.counts())
     finally:
         trace.TRACER.reset()
@@ -185,6 +198,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.error("nothing to do: pass --check")
 
     # Register every metric the port declares before the schema audit.
+    from .. import ckpt, serve  # noqa: F401
     from ..core import solver  # noqa: F401
     from . import timing  # noqa: F401
 

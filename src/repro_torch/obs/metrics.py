@@ -41,10 +41,11 @@ import contextlib
 import re
 import threading
 from collections import deque
+from collections.abc import MutableMapping
 from typing import Dict, Iterable, NamedTuple, Optional, Tuple, Union
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricSpec", "MetricsRegistry",
-           "REGISTRY", "SCHEMA", "ScopeView", "declare"]
+__all__ = ["Counter", "CounterMap", "Gauge", "Histogram", "MetricSpec",
+           "MetricsRegistry", "REGISTRY", "SCHEMA", "ScopeView", "declare"]
 
 _NAME_RE = re.compile(r"^[a-z][a-z0-9_]*(\.[a-z][a-z0-9_]*)+$")
 
@@ -310,6 +311,42 @@ class MetricsRegistry:
                     m._restore(state)
                 else:
                     m._set(state)
+
+
+class CounterMap(MutableMapping):
+    """dict-shaped view over declared registry counters.
+
+    ``CounterMap(reg, "serve.", {"requests": ...})`` maps the key
+    ``"requests"`` onto the declared counter ``serve.requests`` in ``reg``.
+    Reads return plain ints, ``m[k] += 1`` and ``m[k] = v`` work, and
+    ``dict(m)`` / ``{**m}`` behave like a plain dict (the
+    ``SGLServer.counters`` surface).  The key set is fixed at construction.
+    """
+
+    def __init__(self, registry: MetricsRegistry, prefix: str,
+                 keys: Iterable[str]):
+        self._keys = tuple(keys)
+        self._counters = {k: registry.counter(prefix + k)
+                          for k in self._keys}
+
+    def __getitem__(self, k: str) -> int:
+        return self._counters[k].value
+
+    def __setitem__(self, k: str, v: int) -> None:
+        self._counters[k]._set(int(v))
+
+    def __delitem__(self, k: str) -> None:
+        raise TypeError("CounterMap keys are fixed declared metrics")
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def counter(self, k: str) -> Counter:
+        """The underlying typed Counter (for atomic ``inc`` callers)."""
+        return self._counters[k]
 
 
 #: Default process-global registry (the kernels' launch counters, the

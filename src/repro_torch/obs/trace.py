@@ -8,9 +8,11 @@ in :data:`SPAN_SITES`, audited by OB002)::
         round              one certified GAP round (full or compact)
         epoch_block        one BCD epoch-block dispatch
           kernel_launch    one dispatch on the "cuda" backend (host side)
-
-The reference's five ``serve.*`` sites are declared when the serving layer
-is ported.
+    serve.request            one coalesced group through _serve_group
+      serve.coalesce         queue drain + value-digest grouping window
+      serve.store            certificate-store lookup / publish
+      serve.cache            session cache lookup
+      serve.warm_eval        measured warm-hint admission
 
 Contract
 --------
@@ -55,6 +57,11 @@ SPAN_SITES: Dict[str, str] = {
     "epoch_block": "core/session.py:solve, _solve_batch_bcd — one BCD "
                    "epoch-block dispatch",
     "kernel_launch": "core/session.py — dispatch on the cuda backend",
+    "serve.request": "serve/server.py:_serve_group — one coalesced group",
+    "serve.coalesce": "serve/server.py:_worker_loop — drain+group window",
+    "serve.store": "serve/server.py — certificate store lookup/publish",
+    "serve.cache": "serve/server.py — session cache lookup",
+    "serve.warm_eval": "serve/server.py — measured warm-hint admission",
 }
 
 

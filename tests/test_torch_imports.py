@@ -20,6 +20,7 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "bcd_step_cost_torch.py",
     ROOT / "tools" / "dual_norm_scale_probe.py",
     ROOT / "tools" / "small_kernels_torch.py",
+    ROOT / "tools" / "path_ab_torch.py",
     ROOT / "examples" / "quickstart_torch.py"]
 
 
@@ -50,6 +51,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.obs, repro_torch.obs.check, repro_torch.obs.timing\n"
         "import repro_torch.obs.export, repro_torch.launch.roofline\n"
         "import repro_torch.analysis.findings, repro_torch.kernels.sgl_prox\n"
+        "import repro_torch.serve, repro_torch.ckpt, repro_torch.faults\n"
+        "import repro_torch.core.elastic, repro_torch.core.path\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -103,6 +106,35 @@ def test_session_without_device_raises_without_gpu():
         SGLSession(prob, SolverConfig())
     # With an explicit CPU device it runs.
     assert SGLSession(prob, SolverConfig(), device="cpu").backend == "torch"
+
+
+def test_server_without_device_raises_without_gpu():
+    _no_cuda()
+    from repro_torch.serve import ServeConfig, SessionCache, SGLServer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SGLServer(ServeConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SessionCache()
+    # With an explicit CPU device it is built (and never started here).
+    assert SGLServer(ServeConfig(device="cpu")).device.type == "cpu"
+
+
+def test_elastic_without_device_raises_without_gpu():
+    _no_cuda()
+    from repro_torch.core import elastic_objective, make_elastic_problem
+
+    X, y, sizes = np.eye(4, 6), np.ones(4), [3, 3]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_elastic_problem(X, y, sizes, tau=0.5, lam2=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elastic_objective(X, y, np.ones(6), 0.5, [1.0, 1.0], 0.1, 1.0, sizes)
+    # A tensor keeps its device; a named device is used.
+    got = elastic_objective(torch.as_tensor(X), y, np.ones(6), 0.5,
+                            [1.0, 1.0], 0.1, 1.0, sizes)
+    assert got.device.type == "cpu"
+    assert elastic_objective(X, y, np.ones(6), 0.5, [1.0, 1.0], 0.1, 1.0,
+                             sizes, device="cpu").device.type == "cpu"
 
 
 def _run_smoke(cwd: Path, script: Path):

@@ -272,9 +272,13 @@ def test_export_jsonl(tmp_path):
 
 
 def test_span_sites_are_the_solver_sites():
-    assert set(ot.SPAN_SITES) == {"path", "lambda", "round", "epoch_block",
-                                  "kernel_launch"}
-    assert set(ot.SPAN_SITES) < set(j_trace.SPAN_SITES)
+    """The solver's five sites and the serving layer's five, as in the
+    reference."""
+    assert set(ot.SPAN_SITES) == {
+        "path", "lambda", "round", "epoch_block", "kernel_launch",
+        "serve.request", "serve.coalesce", "serve.store", "serve.cache",
+        "serve.warm_eval"}
+    assert set(ot.SPAN_SITES) == set(j_trace.SPAN_SITES)
 
 
 # ---------------------------------------------------------------------------
