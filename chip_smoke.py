@@ -31,7 +31,16 @@ through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
   path preempted and resumed, an epoch budget that ends in ``Degraded``, and
   an injected epoch-kernel launch failure that ends in ``ServeError``;
 * the elastic-net reduction (paper Appendix D) on the synthetic problem:
-  the tall augmented design, n = 10,100 rows.
+  the tall augmented design, n = 10,100 rows;
+* the mesh strategy (``SGLSession(problem, mesh=make_test_mesh())``, a
+  (1, 1) mesh of one NCCL rank): distributed FISTA with GAP rounds on the
+  climate design at full width (its ``fista`` step, 8 points) and on the
+  synthetic problem (its batched-lambda ``fista_batch`` step, 12 points),
+  the prox through the sgl_prox kernel and each round's Omega^D through
+  the dual-norm kernel; each against a plain-backend rerun on the same
+  mesh and the single-device GAP solution at tol 1e-10;
+* the chaos matrix (``repro_torch.faults.chaos.run_matrix``) on the card:
+  16 fault scenarios, no unsafe certificate, no hung future, no demotion.
 
 dual_norm is held against its plain version through both entries (Lambda
 per group, and a round's whole Omega^D with its maximum per lambda, with and
@@ -61,6 +70,7 @@ outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -103,6 +113,18 @@ WAIT_S = 600              # the longest a served future may take here
 # The elastic phase: the synthetic problem with a ridge term lam2 = 1.
 ELASTIC = dict(name="elastic", tau=0.2, tol=1e-8, T=40, delta=3.0, solve=4,
                plain=4, lam2=1.0)
+# The mesh phase: the distributed FISTA strategy on a (1, 1) mesh of one
+# NCCL rank, on the climate design at full width (its fista step) and on
+# the synthetic problem (its fista_batch step).
+MESH_KERNELS = ("sgl_prox", "dual_norm")
+MESH_IDLE = ("corr", "bcd_epoch", "bcd_epoch_logistic", "screening_scores")
+# At full width FISTA with the global Lipschitz constant needs up to 33,860
+# steps per point to reach tol (PERF.md section 6), above the default cap of
+# 10,000.
+MESH_CLIMATE = dict(name="mesh-climate", tau=0.4, tol=1e-6, T=20, delta=2.5,
+                    solve=8, plain=2, max_epochs=60_000)
+MESH_SYNTHETIC = dict(name="mesh-synthetic", tau=SYNTHETIC["tau"], tol=1e-6,
+                      T=40, delta=3.0, solve=12, plain=12)
 SAFETY_TOL = 1e-10
 LEAK = 1e-8               # |beta| a screened variable may have at SAFETY_TOL
 # A Theorem-1 test whose value lies this close (relative) to its threshold
@@ -1003,9 +1025,11 @@ def drive(label, session, lambdas, kernels=(), idle=()):
     return res, counts, wall
 
 
-def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at):
+def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at,
+                **session_kw):
     """The leading lambdas again with the plain PyTorch backends on the
-    card: no launch, gaps <= tol, masks equal on the first ``m``."""
+    card: no launch, gaps <= tol, masks equal on the first ``m``.
+    ``session_kw`` goes to the session (the mesh)."""
     import numpy as np
     import torch
     from repro_torch.core import SGLSession
@@ -1014,7 +1038,7 @@ def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at):
     plain_cfg = cfg._replace(screen_backend="torch", solver_backend="torch")
     before = _util.launch_counts()
     t0 = time.perf_counter()
-    pres = SGLSession(problem, plain_cfg).solve_path(lambdas)
+    pres = SGLSession(problem, plain_cfg, **session_kw).solve_path(lambdas)
     torch.cuda.synchronize()
     pwall = time.perf_counter() - t0
     if _util.launch_counts() != before:
@@ -1590,6 +1614,103 @@ def run_elastic(X, y, sizes):
     return counts, record
 
 
+def run_mesh(config, problem, mesh):
+    """Drive the mesh strategy's path on ``problem`` (a (1, 1) mesh of one
+    NCCL rank) with the kernels; then its leading points with the plain
+    backends on the same mesh (no launch, masks equal under the flip rule,
+    with the mesh's Frobenius group bound in the margins), and hold what it
+    screened against the single-device GAP solution at SAFETY_TOL.
+    Returns (launch counts, the part's record)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SGLSession, SolverConfig
+    from repro_torch.core.session import lambda_grid
+
+    label, tol = config["name"], config["tol"]
+    cfg = SolverConfig(tol=tol, max_epochs=config.get("max_epochs", 10_000))
+    t0 = time.perf_counter()
+    session = SGLSession(problem, cfg, mesh=mesh)
+    setup = time.perf_counter() - t0
+    lambdas = lambda_grid(session.lam_max, T=config["T"],
+                          delta=config["delta"])[:config["solve"]]
+    log(f"path {label}: T={config['T']} delta={config['delta']} "
+        f"lam_max={session.lam_max:.6e} L={session._dist.L:.6e} "
+        f"setup_s={setup:.3f}")
+    res, counts, wall = drive(label, session, lambdas, MESH_KERNELS,
+                              MESH_IDLE)
+    if not (res.gaps <= tol).all():
+        raise AssertionError(f"{label}: gaps above tol {tol}: {res.gaps}")
+    mesh_problem = problem._replace(
+        Xnorm_grp=torch.sqrt((problem.X * problem.X).sum(dim=(0, 2))))
+
+    def margins_at(t):
+        beta_prev = res.betas[t - 1] if t else 0.0 * res.betas[0]
+        return seq_margins(mesh_problem, beta_prev, float(lambdas[t]))
+
+    t1 = time.perf_counter()
+    pres = plain_rerun(label, problem, cfg, lambdas[:config["plain"]], res,
+                       config["plain"], margins_at, mesh=mesh)
+    plain_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    oracle = SGLSession(problem, SolverConfig(tol=SAFETY_TOL)).solve_path(
+        lambdas)
+    if not (oracle.gaps <= SAFETY_TOL).all():
+        raise AssertionError(f"{label}: safety oracle above its tol")
+    fm = problem.feat_mask.cpu().numpy()
+    leaked = max(float(np.abs(oracle.betas[t])[~res.feat_active[t] & fm]
+                       .max(initial=0.0)) for t in range(len(lambdas)))
+    log(f"path {label} safety: max |beta| screened = {leaked:.3e} (limit "
+        f"{LEAK:g}; single-device GAP at tol {SAFETY_TOL:g}, "
+        f"wall_s={time.perf_counter() - t1:.3f})")
+    if leaked > LEAK:
+        raise AssertionError(f"{label}: screened a variable nonzero in the "
+                             f"GAP solution at tol {SAFETY_TOL:g}")
+    record = dict(n=problem.n, p=problem.G * problem.ng, G=problem.G,
+                  points=len(lambdas), wall_s=wall,
+                  fista_steps=int(res.epochs.sum()),
+                  steps=res.epochs.tolist(), rounds=res.n_rounds,
+                  batched_lambdas=res.batched_lambdas, L=session._dist.L,
+                  max_gap=float(res.gaps.max()), plain_points=len(pres.gaps),
+                  plain_s=plain_s, launches=counts)
+    return counts, record
+
+
+def run_chaos():
+    """The chaos matrix on the card (sessions launching the kernels): 16
+    scenarios ok, no unsafe certificate, no hung future, no demotion.
+    Returns (launch counts, the phase's record)."""
+    import torch
+    from repro_torch.faults.chaos import run_matrix
+    from repro_torch.kernels import _util
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    report = run_matrix(seed=SEED, verbose=True)
+    torch.cuda.synchronize()
+    counts = _util.launch_counts()
+    rec = report["recovery"]
+    log(f"chaos: device={report['device']} "
+        f"scenarios={len(report['scenarios'])} "
+        f"failures={report['failures']} "
+        f"unsafe={report['unsafe_certificates']} "
+        f"hung={report['hung_futures']} "
+        f"demotions={rec['kernel_demotions_total']} "
+        f"seconds={report['seconds']} launches={json.dumps(counts)}")
+    if not (report["ok"] and len(report["scenarios"]) == 16
+            and rec["kernel_demotions_total"] == 0
+            and report["device"].startswith("cuda")):
+        raise AssertionError(f"chaos matrix failed: {json.dumps(report)}")
+    record = dict(scenarios={s["name"]: s["seconds"]
+                             for s in report["scenarios"]},
+                  seconds=report["seconds"],
+                  unsafe_certificates=report["unsafe_certificates"],
+                  hung_futures=report["hung_futures"],
+                  kernel_demotions_total=rec["kernel_demotions_total"],
+                  quarantined_total=rec["quarantined_total"],
+                  launches=counts)
+    return counts, record
+
+
 def main() -> int:
     import torch
 
@@ -1602,9 +1723,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
+    import torch.distributed as dist
     from repro_torch.core import make_problem, sgl
     from repro_torch.data import make_climate_like, make_synthetic
     from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.losses import resolve_loss
 
     global CARD
@@ -1653,6 +1776,17 @@ def main() -> int:
     counts, serve_climate = run_serve_climate(climate, climate_grid,
                                               climate_plain)
     add(counts)
+    # The mesh: one NCCL rank.  NCCL's bootstrap opens a socket even at
+    # world size 1; with no interface named it may find none, so the
+    # loopback is named unless the caller chose one.
+    if "NCCL_SOCKET_IFNAME" not in os.environ:
+        os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+        log("mesh: NCCL_SOCKET_IFNAME was unset; set to 'lo'")
+    mesh = make_test_mesh()
+    log(f"mesh: {mesh} backend={dist.get_backend()} "
+        f"world={dist.get_world_size()}")
+    counts, mesh_climate = run_mesh(MESH_CLIMATE, climate, mesh)
+    add(counts)
     del climate
     torch.cuda.empty_cache()
 
@@ -1670,6 +1804,14 @@ def main() -> int:
     add(run_rules(SYNTHETIC_RULES, synthetic))
     counts, serve_synthetic = run_serve_synthetic(synthetic, synthetic_grid)
     add(counts)
+    counts, mesh_synthetic = run_mesh(MESH_SYNTHETIC, synthetic, mesh)
+    add(counts)
+    if mesh_synthetic["batched_lambdas"] <= 0:
+        raise AssertionError("mesh-synthetic: fista_batch never engaged")
+    phase_line("mesh", dict(
+        world=dist.get_world_size(), backend=dist.get_backend(),
+        climate=mesh_climate, synthetic=mesh_synthetic,
+        seconds=mesh_climate["wall_s"] + mesh_synthetic["wall_s"]))
     phase_line("serve", dict(
         climate=serve_climate, synthetic=serve_synthetic,
         seconds=serve_climate["wall_s"] + serve_climate["compare_s"]
@@ -1678,6 +1820,10 @@ def main() -> int:
     counts, elastic = run_elastic(X, y, sizes)
     add(counts)
     phase_line("elastic", elastic)
+    counts, chaos = run_chaos()
+    add(counts)
+    phase_line("chaos", chaos)
+    dist.destroy_process_group()
 
     kernels = [dict(records[k], launches=launches[k]) for k in
                ("corr", "dual_norm", "bcd_epoch", "screening_scores",

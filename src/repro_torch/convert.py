@@ -31,13 +31,15 @@ __all__ = ["beta_from_reference", "loss_from_reference",
 _FLOAT_FIELDS = ("X", "y", "w", "Lg", "Xnorm_col", "Xnorm_grp")
 
 
-def problem_from_reference(arrays: Dict[str, np.ndarray],
-                           device=None) -> SGLProblem:
+def problem_from_reference(arrays: Dict[str, np.ndarray], device=None,
+                           dtype: torch.dtype = DTYPE) -> SGLProblem:
     """``arrays``: the reference problem's X, y, w, tau, feat_mask, Lg,
     Xnorm_col and Xnorm_grp as numpy arrays (e.g.
-    ``{f: np.asarray(getattr(p, f)) for f in p._fields}``)."""
+    ``{f: np.asarray(getattr(p, f)) for f in p._fields}``).  ``dtype``: f64
+    unless named (the mesh strategy also takes an f32 problem, as the
+    reference's does)."""
     dev = resolve_device(device)
-    fields = {f: torch.tensor(np.asarray(arrays[f]), dtype=DTYPE).to(dev)
+    fields = {f: torch.tensor(np.asarray(arrays[f]), dtype=dtype).to(dev)
               for f in _FLOAT_FIELDS}
     fields["feat_mask"] = torch.tensor(
         np.asarray(arrays["feat_mask"], bool)).to(dev)

@@ -52,14 +52,26 @@ failed launch, injected or real, raises
 :class:`~repro_torch.faults.errors.KernelLaunchError`: the reference's
 demotion to its XLA path is not ported, and ``kernel_demotions`` stays 0.
 
-Not in this slice: the mesh strategy.
+Mesh strategy: ``SGLSession(problem, mesh=mesh)`` swaps in the distributed
+FISTA strategy (:mod:`repro_torch.distributed.solver_dist`, over
+``torch.distributed``) behind the same three methods, as the reference
+does: rows sharded over ``"data"``, groups over ``"model"``, a global
+Lipschitz constant, a sharded GAP round every ``f_ce`` steps, sequential
+certificates threaded down the path and path points whose certified active
+sets coincide solved in one batched-lambda FISTA run.  It takes
+``rule="gap"`` and ``loss="lsq"`` only.  The FISTA step's prox is the
+sgl_prox kernel and the round's Omega^D the dual-norm kernel on the
+``"cuda"`` backends; ``"torch"`` runs their plain versions.  Like the
+reference's mesh loop it has no fault-injection site and no budget check.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import sgl
 from .sgl import SGLProblem
@@ -235,19 +247,48 @@ def _problem_to(problem: SGLProblem, device: torch.device) -> SGLProblem:
     })
 
 
+def _global_lipschitz(problem: SGLProblem, n_iter: int = 150) -> float:
+    """||X||_2^2 *estimate* via power iteration, +5% margin (the
+    reference's: the same start vector and count).
+
+    NOT a certified upper bound — the Rayleigh quotient converges to the
+    top eigenvalue from below.  The FISTA solve loops back an auto-estimated
+    constant with a divergence safeguard (gap rising at two consecutive
+    checks past 10x the solve's first gap => double L and rewind), so an
+    under-estimate costs speed, never correctness.  Callers with the exact
+    constant pass ``L=``.
+    """
+    X, mask = problem.X, problem.feat_mask
+    dtype = X.dtype
+    v0 = mask.to(dtype) * (1.0 + 1e-3 * torch.arange(
+        X.shape[2], dtype=dtype, device=X.device))[None, :]
+    v = (v0 / torch.clamp(torch.linalg.vector_norm(v0), min=1e-30)).reshape(-1)
+    Xf = X.reshape(X.shape[0], -1)
+    for _ in range(n_iter):
+        w = torch.mv(Xf.T, torch.mv(Xf, v))
+        v = w / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
+    u = torch.mv(Xf, v)
+    return float((u * u).sum()) * 1.05
+
+
 class SGLSession:
     """Stateful front-end over one SGL problem (see the module docstring).
 
     ``device``: where the session runs — the card unless named (a problem
     on another device is copied there).  ``caches``: gather caches to adopt.
     ``xt_pre``: a persistent (p, n) transposed design to adopt instead of
-    building one.
+    building one.  ``mesh``: a ``DeviceMesh`` named ("data", "model") (with
+    a leading "pod" when ``multi_pod``) on the session's device type —
+    the distributed FISTA strategy replaces the single-device solver;
+    ``L``: its global Lipschitz constant ||X||_2^2, estimated by power
+    iteration when omitted.
     """
 
     def __init__(self, problem: SGLProblem,
                  config: Optional[SolverConfig] = None, *, device=None,
                  caches: Optional[SolveCaches] = None,
-                 xt_pre: Optional[torch.Tensor] = None) -> None:
+                 xt_pre: Optional[torch.Tensor] = None, mesh=None,
+                 multi_pod: bool = False, L: Optional[float] = None) -> None:
         self.device = resolve_device(device)
         if problem.device != self.device:
             problem = _problem_to(problem, self.device)
@@ -295,6 +336,16 @@ class SGLSession:
                                  f"{tuple(xt_pre.shape)}, expected {expect}")
         self._xt_pre: Optional[torch.Tensor] = xt_pre
         self._lam_max: Optional[float] = None
+        if mesh is not None and self.rule.name != "gap":
+            # The sharded round computes GAP-sphere certificates only.
+            raise ValueError("the distributed strategy implements rule='gap' "
+                             f"only; got rule={self.rule.name!r}")
+        if mesh is not None and self.loss.name != "lsq":
+            # The sharded FISTA step and round hard-code the squared loss.
+            raise ValueError("the distributed strategy implements loss='lsq' "
+                             f"only; got loss={self.loss.name!r}")
+        self._dist = (_DistStrategy(self, mesh, multi_pod=multi_pod, L=L)
+                      if mesh is not None else None)
 
     # -- lazily-built shared state -----------------------------------------
 
@@ -406,6 +457,11 @@ class SGLSession:
         rule = self.rule if rule is None else resolve_rule(rule)
         if rule is not self.rule:
             check_rule_loss(rule, self.loss)
+        if self._dist is not None:
+            if rule.name != "gap":
+                raise ValueError("the distributed strategy implements "
+                                 f"rule='gap' only; got rule={rule.name!r}")
+            return self._dist.screen(float(lam_), beta)
         if rule.pre_screens:
             raise ValueError(f"rule={rule.name!r} has no per-round certificate;"
                              " use screening.static_sphere + screening.screen,"
@@ -426,6 +482,8 @@ class SGLSession:
         round evaluated at (``beta0``, ``lam_``), consumed as round 1),
         ``lam_max``, ``check_every`` (override of the config cadence;
         ``"auto"`` reads warmness off ``first_round``), ``caches``."""
+        if self._dist is not None:
+            return self._dist.solve(lam_, beta0=beta0, first_round=first_round)
         cfg = self.config
         problem = self.problem
         rule = self.rule
@@ -871,8 +929,15 @@ class SGLSession:
         grid, ``check_every="auto"`` scheduling, and up to ``batch_lambdas``
         consecutive warm path points solved in one batched run.
         ``sequential=False`` is the naive loop (fresh caches, no pre-solve
-        round).  ``beta0``/``prev_epochs`` resume a path mid-grid.
+        round).  ``beta0``/``prev_epochs`` resume a path mid-grid.  On a
+        mesh, consecutive points whose sequential certificates agree on the
+        active groups run as one batched-lambda FISTA run.
         """
+        if self._dist is not None:
+            return self._dist.solve_path(
+                lambdas=lambdas, T=T, delta=delta, sequential=sequential,
+                keep_results=keep_results, batch_lambdas=batch_lambdas,
+                beta0=beta0)
         with obs_trace.span("path") as _sp:
             _sp.set("T", T if lambdas is None else len(lambdas))
             return self._solve_path_impl(
@@ -1065,4 +1130,475 @@ class SGLSession:
             certificates_safe=rule.is_safe,
             kernel_demotions=self.kernel_demotions,
             degraded=path_degraded,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Distributed strategy: FISTA + GAP screening over torch.distributed, behind
+# the same session methods
+# ---------------------------------------------------------------------------
+
+class _DistStrategy:
+    """Distributed FISTA strategy for :class:`SGLSession` (mesh mode).
+
+    Wraps the steps of :mod:`repro_torch.distributed.solver_dist`: the
+    certified round is the sharded ``screen`` (GAP sphere + Theorem-1 tests
+    with all_reduce collectives), single lambdas run the ``fista`` step, and
+    consecutive path points with coinciding certified active sets run
+    ``fista_batch`` — one design read serving all B lambdas per step.
+
+    Every rank holds the whole problem and keeps its own shard of it: rows
+    ``self.rows`` (its flattened data coordinate) and groups ``self.grps``
+    (its model coordinate).  The solve loops' state lives on the shards;
+    every decision reads values the collectives made equal on all ranks
+    (gaps, active counts, gathered masks), so the ranks take the same
+    branches.
+    Results leave gathered over ``"model"``: the full (G, ng) beta and
+    masks.
+    """
+
+    def __init__(self, session: SGLSession, mesh, *, multi_pod: bool,
+                 L: Optional[float]) -> None:
+        from ..distributed.solver_dist import make_dist_step
+        from ..launch.mesh import check_group_backends, dp_size, model_size
+
+        self.session = session
+        problem = session.problem
+        dev = session.device
+        names = tuple(mesh.mesh_dim_names or ())
+        want = ("pod", "data", "model") if multi_pod else ("data", "model")
+        if names != want:
+            raise ValueError(f"the distributed strategy needs a mesh named "
+                             f"{want}; got {names}")
+        if mesh.device_type != dev.type:
+            raise ValueError(f"the mesh is on {mesh.device_type!r} and the "
+                             f"session on {dev.type!r}")
+        check_group_backends(mesh)
+        dp, mp = dp_size(mesh), model_size(mesh)
+        n, G = problem.n, problem.G
+        if n % dp or G % mp:
+            raise ValueError(f"the mesh shards n={n} rows over {dp} data "
+                             f"ranks and G={G} groups over {mp} model ranks; "
+                             "both must divide evenly")
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not in the mesh")
+        sizes = dict(zip(names, mesh.mesh.shape))
+        di = coord[0] * sizes["data"] + coord[1] if multi_pod else coord[0]
+        mi = coord[-1]
+        self.mp_group = mesh.get_group("model")
+        if dist.get_group_rank(self.mp_group, dist.get_rank()) != mi:
+            raise ValueError("the mesh's 'model' group must rank its members "
+                             "in model-coordinate order")
+        self._all_groups = [mesh.get_group(a) for a in names]
+        n_l, G_l = n // dp, G // mp
+        self.rows = slice(di * n_l, (di + 1) * n_l)
+        self.grps = slice(mi * G_l, (mi + 1) * G_l)
+        dtype = problem.X.dtype
+        self.X = problem.X[self.rows, self.grps].contiguous()
+        self.y = problem.y[self.rows].contiguous()
+        self.w = problem.w[self.grps].contiguous()
+        self.fm_full = problem.feat_mask[self.grps].to(dtype)
+        self.kernels = make_dist_step(
+            mesh, tau=problem.tau, multi_pod=multi_pod, dtype=dtype,
+            screen_backend=session.backend,
+            solver_backend=session.solver_backend)
+        # Design-matrix norms: constants of the problem, computed once per
+        # session on the mesh (Frobenius group bound — safe for Thm 1).
+        self.colnorm, self.gfro = self.kernels.norms(self.X)
+        self.ynorm2 = float((problem.y * problem.y).sum())
+        if L is None:
+            # Each rank estimates from the whole problem; the max over the
+            # mesh makes the constant equal on every rank whatever the
+            # ranks' summation orders.
+            est = torch.tensor([_global_lipschitz(problem)], dtype=dtype,
+                               device=dev)
+            for g in self._all_groups:
+                dist.all_reduce(est, op=dist.ReduceOp.MAX, group=g)
+            L = float(est[0])
+        self.L = float(L)
+
+    # -- shards -------------------------------------------------------------
+
+    def _full(self, a) -> torch.Tensor:
+        """A full (G, ...) array (tensor or numpy) on the device in the
+        problem's dtype."""
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+        return t.to(device=self.session.device, dtype=self.X.dtype)
+
+    def _shard(self, a) -> torch.Tensor:
+        """This rank's group slice of a full (G, ...) array."""
+        return self._full(a)[self.grps]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The full (G, ...) array of local (G_l, ...) shards, over
+        ``"model"``."""
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(self.mp_group))]
+        dist.all_gather(parts, t.contiguous(), group=self.mp_group)
+        return torch.cat(parts)
+
+    def _count(self, mask: torch.Tensor) -> float:
+        """Global number of set entries of a group-sharded mask."""
+        c = mask.sum().reshape(1)
+        dist.all_reduce(c, group=self.mp_group)
+        return float(c[0])
+
+    # -- certified round ----------------------------------------------------
+
+    def _round(self, lam_, beta, feat_mask):
+        """Raw sharded round on the local shards: (feat_mask', group_mask,
+        gap, dual_scale)."""
+        s = self.session
+        problem = s.problem
+        s.rounds += 1
+        s.full_rounds += 1           # sharded rounds are always full-problem
+        s.round_flops += 4.0 * problem.n * problem.G * problem.ng
+        return self.kernels.screen(self.X, self.y, beta, feat_mask, self.w,
+                                   self.colnorm, self.gfro, float(lam_),
+                                   self.ynorm2)
+
+    def screen(self, lam_, beta) -> RoundResult:
+        problem = self.session.problem
+        beta_l = (torch.zeros_like(self.fm_full) if beta is None
+                  else self._shard(beta))
+        fmask, gmask, gap, _sc = self._round(lam_, beta_l, self.fm_full)
+        # theta stays sharded; certificates travel as (gathered) masks.
+        return RoundResult(gap, None, self._gather(gmask) > 0,
+                           self._gather(fmask) > 0,
+                           safe=self.session.rule.is_safe)
+
+    # -- single-lambda solve ------------------------------------------------
+
+    def _divergence_step(self, gap, state, mask_unchanged, gap0):
+        """FISTA restart + divergence safeguard, one check at a time (the
+        reference's).  ``state`` is the per-lambda ``[prev_gap,
+        rose_before]`` pair (mutated in place).  Returns ``(restart,
+        raise_L)``: restart the momentum when the gap rose since the last
+        check with no new screening; double L (kept for the rest of the
+        session) when it rose at two consecutive checks, or went
+        non-finite, and sits above 10x the solve's first gap ``gap0``."""
+        g = float(gap)
+        if not math.isfinite(g):
+            self.L *= 2.0
+            state[0], state[1] = None, False
+            return True, True
+        rose = (state[0] is not None and mask_unchanged and g > state[0])
+        raise_L = (rose and state[1] and gap0 is not None and g > 10.0 * gap0)
+        if raise_L:
+            self.L *= 2.0
+        state[0], state[1] = g, rose
+        return rose, raise_L
+
+    def solve(self, lam_, beta0=None, first_round=None) -> SolveResult:
+        cfg = self.session.config
+        dtype = self.X.dtype
+        tol, f_ce, max_steps = cfg.tol, cfg.f_ce, cfg.max_epochs
+        # Low-precision guard: at convergence the rounded gap's cancellation
+        # error can undershoot the GAP radius and mis-certify borderline
+        # groups, so sub-f64 runs do not adopt the converged round's masks.
+        low_prec = dtype.itemsize < 8
+        beta = (torch.zeros_like(self.fm_full) if beta0 is None
+                else self._shard(beta0))
+        z = beta
+        t_mom = 1.0
+        feat_mask = self.fm_full
+        gmask = (self.fm_full.sum(dim=-1) > 0).to(dtype)
+        lam_ = float(lam_)
+        gap = float("inf")
+        gap_history: list = []
+        injected = first_round
+        div_state = [None, False]      # [prev_gap, rose_before]
+        gap0 = None                    # first finite gap of this solve
+        best_gap, best_beta = None, None
+        prev_nact = None
+        n_steps = 0
+
+        for step in range(max_steps):
+            if step % f_ce == 0:
+                if injected is not None:
+                    # Sequential certificate from the path engine, consumed
+                    # as round 0 instead of recomputing it.
+                    gap = float(injected.gap)
+                    gm_new = self._shard(injected.group_active)
+                    fm_new = feat_mask * self._shard(injected.feat_active)
+                    injected = None
+                else:
+                    fm_new, gm_new, gap_t, _sc = self._round(lam_, beta,
+                                                             feat_mask)
+                    gap = float(gap_t)
+                gap_history.append((step, gap))
+                if gap0 is None and math.isfinite(gap):
+                    gap0 = gap
+                if gap <= tol:
+                    if not low_prec:
+                        feat_mask, gmask = fm_new, gm_new
+                    break
+                finite = math.isfinite(gap)
+                nact = self._count(fm_new)
+                restart, raised = self._divergence_step(
+                    gap, div_state, nact == prev_nact, gap0)
+                if raised:
+                    # A diverged trajectory can sit astronomically far from
+                    # the optimum: rewind to the best iterate seen.
+                    beta = (best_beta if best_beta is not None
+                            else torch.zeros_like(beta))
+                if restart:
+                    z = beta
+                    t_mom = 1.0
+                if finite:
+                    # A NaN round's Theorem-1 comparisons all read False;
+                    # only finite rounds update the (monotone) masks.
+                    if best_gap is None or gap < best_gap:
+                        best_gap, best_beta = gap, beta
+                    prev_nact = nact
+                    feat_mask, gmask = fm_new, gm_new
+                beta = beta * feat_mask
+                z = z * feat_mask
+            beta, z, t_mom = self.kernels.fista(
+                self.X, self.y, beta, z, feat_mask, self.w, t_mom, lam_,
+                self.L)
+            n_steps = step + 1
+
+        return SolveResult(
+            beta=self._gather(beta), theta=None, gap=gap, n_epochs=n_steps,
+            group_active=(self._gather(gmask) > 0).cpu().numpy(),
+            feat_active=(self._gather(feat_mask) > 0).cpu().numpy(),
+            gap_history=gap_history, active_history=[])
+
+    # -- batched-lambda solve (coinciding certified active sets) ------------
+
+    def _solve_batch(self, lams, beta0, certs):
+        """Solve B consecutive path points in ONE batched FISTA run.
+
+        All B lambdas warm-start from the same previous-lambda beta (the
+        local shard ``beta0``) and carry their own per-lambda certificate
+        masks ((B, G_l, ng) state, from the local ``certs``); every f_ce
+        steps each unconverged lambda gets its own certified round.
+        Returns per-lambda SolveResults (beta and masks snapshotted at first
+        convergence, gathered)."""
+        cfg = self.session.config
+        dtype = self.X.dtype
+        dev = self.session.device
+        tol, f_ce, max_steps = cfg.tol, cfg.f_ce, cfg.max_epochs
+        low_prec = dtype.itemsize < 8
+        B = len(lams)
+        self.session.batched_lambdas += B
+
+        fm_full = self.fm_full
+        gm_full = (fm_full.sum(dim=-1) > 0).to(dtype)
+        mask = torch.stack([c[0] for c in certs])          # (B, G_l, ng)
+        gmask_b = [c[1] for c in certs]
+        gap_b = [float(c[2]) for c in certs]
+        gap_history = [[(0, g)] for g in gap_b]
+        done = np.array([g <= tol for g in gap_b])
+        steps_b = np.zeros(B, np.int64)
+        final_beta = [beta0 if done[b] else None for b in range(B)]
+        # Low-precision guard: a certificate whose gap already reads <= tol
+        # converged on a possibly mis-rounded round, so sub-f64 runs report
+        # the full masks instead of adopting it.
+        final_mask = [(fm_full if low_prec else mask[b]) if done[b] else None
+                      for b in range(B)]
+        if low_prec:
+            gmask_b = [gm_full if done[b] else gmask_b[b] for b in range(B)]
+
+        beta = beta0[None].repeat(B, 1, 1) * mask
+        z = beta
+        t_mom = torch.ones(B, dtype=torch.float64, device=dev)
+        lam_j = torch.as_tensor(np.asarray(lams, np.float64),
+                                dtype=dtype).to(dev)
+        div_state = [[None, False] for _ in range(B)]
+        gap0_b = [g if math.isfinite(g) else None for g in gap_b]
+        best_gb = [None] * B
+        best_bb = [None] * B
+        prev_nact = [None] * B
+
+        step = 0
+        while not done.all() and step < max_steps:
+            for _ in range(f_ce):
+                beta, z, t_mom = self.kernels.fista_batch(
+                    self.X, self.y, beta, z, mask, self.w, t_mom, lam_j,
+                    self.L)
+            step += f_ce
+            new_mask = []
+            restart_b = []
+            for b in range(B):
+                if done[b]:
+                    # Converged lambdas keep iterating inert under their
+                    # frozen mask (their reported state is the snapshot).
+                    new_mask.append(mask[b])
+                    continue
+                fm, gm, gap_t, _sc = self._round(lams[b], beta[b], mask[b])
+                gap = float(gap_t)
+                gap_history[b].append((step, gap))
+                if gap <= tol:
+                    done[b] = True
+                    steps_b[b] = step
+                    final_beta[b] = beta[b].clone()
+                    final_mask[b] = mask[b] if low_prec else fm
+                    if not low_prec:
+                        gmask_b[b] = gm
+                    new_mask.append(mask[b] if low_prec else fm)
+                    continue
+                finite = math.isfinite(gap)
+                if gap0_b[b] is None and finite:
+                    gap0_b[b] = gap
+                nact = self._count(fm)
+                restart, raised = self._divergence_step(
+                    gap, div_state[b], nact == prev_nact[b], gap0_b[b])
+                if raised:
+                    # Rewind the diverged lambda to its best iterate.
+                    beta = beta.clone()
+                    beta[b] = (best_bb[b] if best_bb[b] is not None else 0.0)
+                if restart:
+                    restart_b.append(b)
+                if finite:
+                    gmask_b[b] = gm
+                    if best_gb[b] is None or gap < best_gb[b]:
+                        best_gb[b], best_bb[b] = gap, beta[b].clone()
+                    prev_nact[b] = nact
+                    new_mask.append(fm)
+                else:
+                    new_mask.append(mask[b])
+            mask = torch.stack(new_mask)
+            beta = beta * mask
+            z = z * mask
+            for b in restart_b:                       # adaptive restarts
+                z[b] = beta[b]
+                t_mom[b] = 1.0
+
+        for b in range(B):
+            if not done[b]:       # max_steps stragglers
+                steps_b[b] = step
+                final_beta[b] = beta[b]
+                final_mask[b] = mask[b]
+
+        return [
+            SolveResult(
+                beta=self._gather(final_beta[b]), theta=None,
+                gap=gap_history[b][-1][1], n_epochs=int(steps_b[b]),
+                group_active=(self._gather(gmask_b[b]) > 0).cpu().numpy(),
+                feat_active=(self._gather(final_mask[b]) > 0).cpu().numpy(),
+                gap_history=gap_history[b], active_history=[])
+            for b in range(B)
+        ]
+
+    # -- path engine --------------------------------------------------------
+
+    def solve_path(self, lambdas, T, delta, sequential, keep_results,
+                   batch_lambdas, beta0=None) -> PathResult:
+        s = self.session
+        problem = s.problem
+        dtype = problem.X.dtype
+        if lambdas is None:
+            lambdas = lambda_grid(s.lam_max, T=T, delta=delta)
+        lambdas = np.ascontiguousarray(lambdas, dtype=float)
+        T_ = len(lambdas)
+        G, ng = problem.G, problem.ng
+        fm_np = problem.feat_mask.cpu().numpy()
+        n_feat = int(fm_np.sum())
+        n_groups = int(fm_np.any(axis=-1).sum())
+        rounds0 = s.rounds
+        flops0 = s.round_flops
+        batched0 = s.batched_lambdas
+        low_prec = dtype.itemsize < 8
+
+        betas = np.zeros((T_, G, ng), np.float64)
+        gaps = np.zeros(T_, float)
+        epochs = np.zeros(T_, np.int64)
+        gfrac = np.zeros(T_, float)
+        ffrac = np.zeros(T_, float)
+        g_act = np.zeros((T_, G), bool)
+        f_act = np.zeros((T_, G, ng), bool)
+        seq_scr = np.zeros(T_, np.int64)
+        dyn_scr = np.zeros(T_, np.int64)
+        results: list = []
+
+        def record(t, res, n_seq_active):
+            betas[t] = res.beta.cpu().numpy()
+            gaps[t] = float(res.gap)
+            epochs[t] = res.n_epochs
+            g_act[t] = res.group_active
+            f_act[t] = res.feat_active
+            gfrac[t] = g_act[t].sum() / max(n_groups, 1)
+            ffrac[t] = f_act[t].sum() / max(n_feat, 1)
+            dyn_scr[t] = max(0, n_seq_active - int(g_act[t].sum()))
+            if keep_results:
+                results.append(res)
+
+        beta = (torch.zeros((G, ng), dtype=dtype, device=s.device)
+                if beta0 is None else self._full(beta0))
+        t = 0
+        while t < T_:
+            beta_l = self._shard(beta)
+            if sequential:
+                # Sequential certificates for the upcoming run, all from the
+                # current (previous lambda's) primal point — every GAP sphere
+                # from a feasible point is safe, so one beta can certify
+                # several lambdas ahead.
+                certs = [self._round(lambdas[t], beta_l, self.fm_full)]
+                cert_g = [self._gather(certs[0][1]) > 0]
+                base = cert_g[0]
+                while len(certs) < batch_lambdas and t + len(certs) < T_:
+                    k = t + len(certs)
+                    ck = self._round(lambdas[k], beta_l, self.fm_full)
+                    gk = self._gather(ck[1]) > 0
+                    if torch.equal(gk, base):
+                        certs.append(ck)
+                        cert_g.append(gk)
+                    else:
+                        # Mismatch: k re-certifies later from a warmer beta.
+                        break
+                for j, g in enumerate(cert_g):
+                    seq_scr[t + j] = n_groups - int(g.sum())
+            else:
+                certs = [None]
+
+            if len(certs) == 1:
+                cert = certs[0]
+                first = None
+                n_seq_active = n_groups
+                if cert is not None:
+                    first = RoundResult(cert[2], None, cert_g[0],
+                                        self._gather(cert[0]) > 0,
+                                        safe=s.rule.is_safe)
+                    n_seq_active = int(cert_g[0].sum())
+                res = self.solve(float(lambdas[t]), beta0=beta,
+                                 first_round=first)
+                if low_prec and res.n_epochs == 0:
+                    # Converged on the certificate round in sub-f64: the
+                    # solve neither adopted nor reports its masks.
+                    seq_scr[t] = 0
+                    n_seq_active = n_groups
+                record(t, res, n_seq_active)
+                beta = res.beta
+                t += 1
+            else:
+                run = self._solve_batch(lambdas[t:t + len(certs)], beta_l,
+                                        certs)
+                for j, res in enumerate(run):
+                    if low_prec and res.n_epochs == 0:
+                        seq_scr[t + j] = 0
+                    record(t + j, res, n_groups - int(seq_scr[t + j]))
+                beta = run[-1].beta
+                t += len(certs)
+
+        return PathResult(
+            lambdas=lambdas, betas=betas, gaps=gaps, epochs=epochs,
+            group_active_frac=gfrac, feat_active_frac=ffrac,
+            group_active=g_act, feat_active=f_act,
+            seq_screened=seq_scr, dyn_screened=dyn_scr,
+            n_gathers=0, results=results,
+            n_rounds=s.rounds - rounds0,
+            n_transpose_copies=0,   # sharded rounds are products over the
+                                    # shards: no feature-major copy
+            n_compact_rounds=0,     # the mesh strategy always screens the
+                                    # full (sharded) problem
+            n_full_rounds=s.rounds - rounds0,
+            round_flops=s.round_flops - flops0,
+            n_fused_epoch_launches=0,   # the mesh inner solver is FISTA
+            batched_lambdas=s.batched_lambdas - batched0,
+            rule_name=s.rule.name,
+            certificates_safe=s.rule.is_safe,
+            kernel_demotions=s.kernel_demotions,
         )

@@ -1,6 +1,6 @@
 """repro_torch.faults — deterministic fault injection + graceful degradation.
 
-Counterpart of ``repro/faults`` (less the chaos matrix).  Three pieces:
+Counterpart of ``repro/faults``.  Four pieces:
 
 * **Harness** — :class:`FaultPlan` / :class:`FaultSpec` value objects and
   the :func:`inject` context manager: seeded, site-addressable faults
@@ -14,6 +14,10 @@ Counterpart of ``repro/faults`` (less the chaos matrix).  Three pieces:
   resolve to.
 * **Budgets** — :class:`SolveBudget`: per-request deadlines and epoch
   caps checked at host-synced round boundaries.
+* **Chaos matrix** — :mod:`repro_torch.faults.chaos` (``python -m
+  repro_torch.faults --check``): every fault kind driven against a small
+  problem, its outcome held to the protocol, with no unsafe certificate
+  and no hung future.
 
 A failed kernel launch, injected or real, raises
 :class:`KernelLaunchError` out of the session: the port has no demotion to

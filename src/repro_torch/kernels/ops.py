@@ -182,15 +182,9 @@ def sgl_prox_batched(beta: torch.Tensor, lam_b: torch.Tensor, L, w: torch.Tensor
     """Two-level prox over a batched-lambda state: beta (B, G, ng), lam_b
     (B,), L a scalar or (B,), w (G,).  Each (b, g) row is an independent
     prox at step lam_b[b] / L: on the card one launch that forms the steps
-    itself; the plain version is :func:`sgl_prox` over the flattened
-    (B * G, ng) view at lam = 1."""
+    itself; the plain version is :func:`ref.sgl_prox_batched_ref`."""
     if _on_cpu(beta):
-        B, G, ng = beta.shape
-        step = torch.as_tensor(lam_b / L, dtype=beta.dtype, device=beta.device)
-        step = torch.broadcast_to(step.reshape(-1)[:, None], (B, G)).reshape(-1)
-        w_flat = torch.broadcast_to(w[None, :], (B, G)).reshape(-1)
-        return ref.sgl_prox_ref(beta.reshape(B * G, ng), step, w_flat, tau,
-                                1.0).reshape(B, G, ng)
+        return ref.sgl_prox_batched_ref(beta, lam_b, L, w, tau)
     return sgl_prox_batched_cuda(beta, lam_b, L, w, float(tau))
 
 

@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["CHUNK", "bcd_chunked", "bcd_epochs_logistic_ref", "bcd_epochs_ref",
            "corr_ref", "dual_norm_ref", "screening_scores_ref",
-           "sgl_dual_norm_ref", "sgl_prox_ref"]
+           "sgl_dual_norm_ref", "sgl_prox_batched_ref", "sgl_prox_ref"]
 
 
 def corr_ref(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -30,6 +30,19 @@ def sgl_prox_ref(beta: torch.Tensor, step: torch.Tensor, w: torch.Tensor,
     from ..core.sgl import sgl_prox
 
     return sgl_prox(beta, step, tau, w, lam)
+
+
+def sgl_prox_batched_ref(beta: torch.Tensor, lam_b, L, w: torch.Tensor,
+                         tau) -> torch.Tensor:
+    """The prox over a batched-lambda state beta (B, G, ng): each (b, g) row
+    at step lam_b[b] / L (``L`` a scalar or (B,)), i.e. :func:`sgl_prox_ref`
+    over the flattened (B * G, ng) view at lam = 1."""
+    B, G, ng = beta.shape
+    step = torch.as_tensor(lam_b / L, dtype=beta.dtype, device=beta.device)
+    step = torch.broadcast_to(step.reshape(-1)[:, None], (B, G)).reshape(-1)
+    w_flat = torch.broadcast_to(w[None, :], (B, G)).reshape(-1)
+    return sgl_prox_ref(beta.reshape(B * G, ng), step, w_flat, tau,
+                        1.0).reshape(B, G, ng)
 
 
 def dual_norm_ref(x: torch.Tensor, alpha: torch.Tensor,

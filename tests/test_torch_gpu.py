@@ -10,13 +10,16 @@ different summation orders of the kernel and the plain version separate
 them (1e-5 for the prox kernel in f32, as the reference's kernel tests);
 path masks are compared exactly.  Also here: the observability layer on
 the card (the timing harness, the obs gate with a CUDA smoke, traced
-against untraced bits).
+against untraced bits), and the mesh strategy's steps on a world of one
+NCCL rank (its fista steps through the prox kernel against its plain
+version within 1e-10 relative after 30 steps, and one sharded round).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import SGLSession, SolverConfig, make_problem
+from repro_torch.core import lambda_max as sgl_lambda_max
 from repro_torch.data import make_climate_like
 from repro_torch.kernels import _util, ops, ref
 from repro_torch.kernels.bcd_epoch import (
@@ -556,3 +559,82 @@ def test_rule_kernel_path_matches_plain_path(hopper, rule):
     assert (audit.launches["screening_scores"] > 0) == (rule == "static")
     assert (kr.gaps <= 1e-8).all() and (pr.gaps <= 1e-8).all()
     _masks_equal_past_lambda_max(kr, pr)
+
+
+# ---------------------------------------------------------------------------
+# The mesh strategy on the card: a world of one NCCL rank
+# ---------------------------------------------------------------------------
+
+def _mesh_case(dev):
+    from repro_torch.distributed.solver_dist import make_dist_step
+    from repro_torch.launch.mesh import make_test_mesh
+
+    X, y, _, sizes = make_climate_like(n=120, n_lon=6, n_lat=4)
+    prob = make_problem(X, y, sizes, tau=0.3)
+    mesh = make_test_mesh(dev)
+    steps = {b: make_dist_step(mesh, tau=prob.tau, screen_backend=b,
+                               solver_backend=b) for b in ("cuda", "torch")}
+    L = float(torch.linalg.matrix_norm(prob.X.reshape(prob.n, -1), ord=2)
+              ** 2)
+    return prob, steps, L
+
+
+def test_mesh_fista_steps_with_kernels_match_plain(hopper):
+    """The mesh's fista and fista_batch steps through the sgl_prox kernel
+    against the same steps through its plain version: 30 steps each."""
+    prob, steps, L = _mesh_case(hopper)
+    lam = 0.3 * float(sgl_lambda_max(prob))
+    fm = prob.feat_mask.to(prob.X.dtype)
+    out = {}
+    for b, k in steps.items():
+        _util.reset_launch_counts()
+        beta = torch.zeros_like(fm)
+        z, t = beta, 1.0
+        bb = torch.zeros((4,) + fm.shape, dtype=fm.dtype, device=hopper)
+        zb, tb = bb, torch.ones(4, dtype=torch.float64, device=hopper)
+        lam_b = lam * torch.tensor([1.0, 0.8, 0.6, 0.5], dtype=fm.dtype,
+                                   device=hopper)
+        for _ in range(30):
+            beta, z, t = k.fista(prob.X, prob.y, beta, z, fm, prob.w, t, lam,
+                                 L)
+            bb, zb, tb = k.fista_batch(prob.X, prob.y, bb, zb, fm[None]
+                                       .expand_as(bb), prob.w, tb, lam_b, L)
+        torch.cuda.synchronize()
+        out[b] = (beta, bb, _util.launch_counts()["sgl_prox"])
+    assert out["cuda"][2] == 60 and out["torch"][2] == 0
+    assert float(out["cuda"][0].abs().max()) > 0
+    torch.testing.assert_close(out["cuda"][0], out["torch"][0], rtol=1e-10,
+                               atol=1e-12)
+    torch.testing.assert_close(out["cuda"][1], out["torch"][1], rtol=1e-10,
+                               atol=1e-12)
+
+
+def test_mesh_screen_round_on_nccl(hopper):
+    """One sharded GAP round over a world of one NCCL rank: the dual-norm
+    kernel against its plain version, equal masks, one launch."""
+    import torch.distributed as dist
+
+    prob, steps, L = _mesh_case(hopper)
+    assert dist.get_backend() == "nccl"
+    lam = 0.3 * float(sgl_lambda_max(prob))
+    fm = prob.feat_mask.to(prob.X.dtype)
+    # 200 plain steps: a gap small enough for the round to screen groups
+    beta = torch.zeros_like(fm)
+    z, t = beta, 1.0
+    for _ in range(200):
+        beta, z, t = steps["torch"].fista(prob.X, prob.y, beta, z, fm, prob.w,
+                                          t, lam, L)
+    colnorm, gfro = steps["cuda"].norms(prob.X)
+    ynorm2 = float((prob.y * prob.y).sum())
+    got = {}
+    for b, k in steps.items():
+        _util.reset_launch_counts()
+        got[b] = k.screen(prob.X, prob.y, beta, fm, prob.w, colnorm, gfro,
+                          lam, ynorm2)
+        torch.cuda.synchronize()
+        assert _util.launch_counts()["dual_norm"] == (b == "cuda")
+    (fk, gk, gapk, sck), (fp, gp, gapp, scp) = got["cuda"], got["torch"]
+    assert torch.equal(fk, fp) and torch.equal(gk, gp)
+    torch.testing.assert_close(gapk, gapp, rtol=1e-12, atol=1e-9)
+    torch.testing.assert_close(sck, scp, rtol=1e-12, atol=0)
+    assert 0 < int(gk.sum()) < prob.G

@@ -21,6 +21,7 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "dual_norm_scale_probe.py",
     ROOT / "tools" / "small_kernels_torch.py",
     ROOT / "tools" / "path_ab_torch.py",
+    ROOT / "tools" / "mesh_step_cost_torch.py",
     ROOT / "examples" / "quickstart_torch.py"]
 
 
@@ -53,6 +54,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.analysis.findings, repro_torch.kernels.sgl_prox\n"
         "import repro_torch.serve, repro_torch.ckpt, repro_torch.faults\n"
         "import repro_torch.core.elastic, repro_torch.core.path\n"
+        "import repro_torch.distributed, repro_torch.launch.mesh\n"
+        "import repro_torch.faults.chaos, repro_torch.faults.__main__\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -69,6 +72,7 @@ _LAUNCH_SITES = [PORT / "kernels" / f for f in
                   "bcd_epoch.py", "bcd_epoch_logistic.py", "sgl_prox.py",
                   "_build.py")] + [
     PORT / "core" / "solver.py", PORT / "core" / "session.py",
+    PORT / "distributed" / "solver_dist.py", PORT / "launch" / "mesh.py",
     PORT / "obs" / "timing.py", PORT / "obs" / "check.py",
     ROOT / "chip_smoke.py"]
 
@@ -118,6 +122,31 @@ def test_server_without_device_raises_without_gpu():
         SessionCache()
     # With an explicit CPU device it is built (and never started here).
     assert SGLServer(ServeConfig(device="cpu")).device.type == "cpu"
+
+
+def test_make_test_mesh_without_device_raises_without_gpu():
+    _no_cuda()
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_test_mesh()
+    # Nothing was initialised on the way to the error.
+    assert not dist.is_initialized() or dist.get_backend() == "gloo"
+
+
+def test_chaos_matrix_without_device_raises_without_gpu():
+    _no_cuda()
+    from repro_torch.faults.__main__ import main
+    from repro_torch.faults.chaos import run_matrix
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_matrix(verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--check"])
 
 
 def test_elastic_without_device_raises_without_gpu():
