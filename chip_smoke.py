@@ -8,8 +8,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the six hand-written CUDA kernels (and an empty one) from
 ``src/repro_torch/kernels/csrc`` (into ``build/torch_kernels/``), holds
 each kernel against its plain PyTorch version on the card at its paths'
-shapes, and drives the paths
-through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
+shapes, runs the static-analysis gate (``repro_torch.analysis.run_checks``
+with its three passes: the cert lints, the launch audit with every built
+kernel read against its spec, the dispatch lints with their templates on
+the card, and one full-width probe, the climate problem's first cold solve
+below lambda_max; its report goes to ``build/analysis/``), and drives the
+paths through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
 
 * the least-squares GAP path on the paper's climate configuration at full
   width (n = 814, p = 73,584, G = 10,512 groups of 7) and on the paper's
@@ -1056,6 +1060,63 @@ def plain_rerun(label, problem, cfg, lambdas, res, m, margins_at,
     return pres
 
 
+def run_analysis(climate, lam_max: float) -> dict:
+    """The static-analysis gate on the card, once the kernels are built:
+    ``run_checks`` with all three passes (the dispatch lints' templates on
+    the card, their "cuda" backend through the kernels), CU007 against
+    every built kernel, and one full-width probe: the dispatch lints over
+    the climate problem's first cold solve below lambda_max, with n p of
+    the climate design as the design size.  Writes the payload and its
+    markdown under build/analysis/ and raises on any error finding."""
+    from repro_torch.analysis.entrypoints import EntryPointSpec
+    from repro_torch.analysis.main import run_checks
+    from repro_torch.core import SGLSession, SolverConfig
+    from repro_torch.core.session import lambda_grid
+    from repro_torch.launch.report import render_analysis_markdown
+
+    t0 = time.perf_counter()
+    lam = float(lambda_grid(lam_max, T=CLIMATE["T"],
+                            delta=CLIMATE["delta"])[1])
+
+    def probe():
+        session = SGLSession(climate, SolverConfig(tol=CLIMATE["tol"]))
+        return session.solve, (lam,), {}
+
+    spec = EntryPointSpec(
+        name="probe/climate-cold-solve", traceable="SGLSession.solve",
+        build=probe, design_elements=climate.n * climate.G * climate.ng,
+        note="the climate path's second grid point, solved cold")
+    payload = run_checks(device="cuda", cuda=True, probes=[spec])
+    seconds = time.perf_counter() - t0
+    out = ROOT / "build" / "analysis"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "chip_analysis.json").write_text(
+        json.dumps(payload, indent=2, sort_keys=True) + "\n")
+    (out / "chip_analysis.md").write_text(render_analysis_markdown(payload))
+    launch = payload["passes"]["launch"]
+    dispatch = payload["passes"]["dispatch"]
+    launchable = sum(
+        1 for r in launch["built"].values()
+        if r.get("clusters_on_card", r.get("blocks_per_sm", 0)) >= 1)
+    summary = payload["summary"]
+    record = dict(errors=summary["errors"], warnings=summary["warnings"],
+                  infos=summary["infos"],
+                  kernels_audited=len(launch["kernels"]),
+                  launchable=launchable,
+                  entry_points=len(dispatch["entry_points"]),
+                  probe=dict(lam_over_lam_max=lam / lam_max,
+                             **dispatch["ops"][spec.name]),
+                  seconds=seconds,
+                  report=str((out / "chip_analysis.md").relative_to(ROOT)))
+    phase_line("analysis", record)
+    errors = [f for f in payload["findings"] if f["severity"] == "error"]
+    if errors or launchable != len(launch["kernels"]):
+        raise AssertionError(f"analysis: {len(errors)} error findings, "
+                             f"{launchable} of {len(launch['kernels'])} specs "
+                             f"launchable: {errors[:5]}")
+    return record
+
+
 def run_path(config, problem):
     """Drive a GAP path with the kernels, then its leading lambdas with the
     plain backends; returns the launch counts, the result, the wall-clock
@@ -1762,6 +1823,14 @@ def main() -> int:
         f"setup_s={time.perf_counter() - t0:.2f}")
     records = check_kernels(climate, lam_max, y01, lam_max_logistic)
     records["sgl_prox"] = check_prox(climate, lam_max)
+    # The mesh: one NCCL rank (the analysis phase's mesh templates bring it
+    # up first).  NCCL's bootstrap opens a socket even at world size 1;
+    # with no interface named it may find none, so the loopback is named
+    # unless the caller chose one.
+    if "NCCL_SOCKET_IFNAME" not in os.environ:
+        os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+        log("mesh: NCCL_SOCKET_IFNAME was unset; set to 'lo'")
+    run_analysis(climate, lam_max)
 
     launches = {k: 0 for k in records}
 
@@ -1776,12 +1845,6 @@ def main() -> int:
     counts, serve_climate = run_serve_climate(climate, climate_grid,
                                               climate_plain)
     add(counts)
-    # The mesh: one NCCL rank.  NCCL's bootstrap opens a socket even at
-    # world size 1; with no interface named it may find none, so the
-    # loopback is named unless the caller chose one.
-    if "NCCL_SOCKET_IFNAME" not in os.environ:
-        os.environ["NCCL_SOCKET_IFNAME"] = "lo"
-        log("mesh: NCCL_SOCKET_IFNAME was unset; set to 'lo'")
     mesh = make_test_mesh()
     log(f"mesh: {mesh} backend={dist.get_backend()} "
         f"world={dist.get_world_size()}")

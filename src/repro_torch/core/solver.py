@@ -293,13 +293,13 @@ def _screen_round_compact(problem: SGLProblem, Xt, take, gmask, beta,
 
     fmask_sub = feat_active[take].to(dtype) * gmask[:, None]
     bsub = beta[take] * fmask_sub
-    resid = problem.y - torch.einsum("gnk,gk->n", Xt, bsub)
+    resid = problem.y - kref.buffer_matvec(Xt, bsub)
     shift = torch.linalg.vector_norm(resid - resid_ref)
 
     if backend == "cuda":
         corr = kops.screening_corr(xt_rows, resid).reshape(Gb, ng)
     else:
-        corr = torch.einsum("gnk,n->gk", Xt, resid)
+        corr = kref.buffer_corr(Xt, resid)
     corr = corr * gmask[:, None]          # padded slots alias group 0
 
     w_sub = problem.w[take]
@@ -393,7 +393,7 @@ def _inner_rounds(Xt, Lg, w, y, beta, feat_active, take, gmask, tau: float,
     Gb, ng = Xt.shape[0], Xt.shape[2]
     fmask = feat_active[take].to(dtype) * gmask[:, None]
     bsub0 = beta[take] * fmask
-    resid0 = y - torch.einsum("gnk,gk->n", Xt, bsub0)
+    resid0 = y - kref.buffer_matvec(Xt, bsub0)
     y2half = 0.5 * (y * y).sum()
     Lg_eff = Lg * gmask
     lam_b = torch.full((1,), lam_, dtype=dtype, device=beta.device)
@@ -402,7 +402,7 @@ def _inner_rounds(Xt, Lg, w, y, beta, feat_active, take, gmask, tau: float,
         if backend == "cuda" and xt_rows is not None:
             corr = kops.screening_corr(xt_rows, resid).reshape(Gb, ng) * fmask
         else:
-            corr = torch.einsum("gnk,n->gk", Xt, resid) * fmask
+            corr = kref.buffer_corr(Xt, resid) * fmask
         dn = _dual_terms(corr, tau, w, backend)[1][0]
         theta = resid / torch.clamp(dn, min=lam_)
         primal = 0.5 * (resid * resid).sum() + lam_ * sgl.sgl_norm(bsub, tau, w)
@@ -444,7 +444,7 @@ def _inner_rounds_loss(Xt, Lg, w, y, beta, feat_active, take, gmask,
     fmask = feat_active[take].to(dtype) * gmask[:, None]
     bsub0 = beta[take] * fmask
     # beta is exactly zero off the buffer, so this IS the full predictor.
-    z0 = torch.einsum("gnk,gk->n", Xt, bsub0)
+    z0 = kref.buffer_matvec(Xt, bsub0)
     Lg_eff = Lg * gmask
     lam_b = torch.full((1,), lam_, dtype=dtype, device=beta.device)
     fused = backend == "cuda" and loss.name == "logistic"
@@ -454,7 +454,7 @@ def _inner_rounds_loss(Xt, Lg, w, y, beta, feat_active, take, gmask,
         if backend == "cuda" and xt_rows is not None:
             corr = kops.screening_corr(xt_rows, rho).reshape(Gb, ng) * fmask
         else:
-            corr = torch.einsum("gnk,n->gk", Xt, rho) * fmask
+            corr = kref.buffer_corr(Xt, rho) * fmask
         dn = _dual_terms(corr, tau, w, backend)[1][0]
         theta = rho / torch.clamp(dn, min=lam_)
         primal = loss.value(y, z) + lam_ * sgl.sgl_norm(bsub, tau, w)
@@ -548,3 +548,20 @@ def solve(
     session = SGLSession(problem, cfg, device=device, caches=caches)
     return session.solve(lam_, beta0=beta0, first_round=first_round,
                          lam_max=lam_max)
+
+
+# ----------------------------------------------------------------------------
+# Static-analysis registration: the entry points the dispatch lints run
+# (repro_torch.analysis.registry is a leaf import — no cycle).  Each name
+# pairs with a template in repro_torch.analysis.entrypoints.
+# ----------------------------------------------------------------------------
+
+from ..analysis.registry import register_traceable  # noqa: E402
+
+for _name, _fn in (("screen_round", _screen_round),
+                  ("screen_round_compact", _screen_round_compact),
+                  ("inner_rounds", _inner_rounds),
+                  ("bcd_epochs", bcd_epochs),
+                  ("inner_rounds_loss", _inner_rounds_loss),
+                  ("bcd_epochs_loss", bcd_epochs_loss)):
+    register_traceable(_name, _fn, module=__name__)

@@ -237,3 +237,15 @@ def solve_distributed(mesh, X, y, w, *, tau: float, lam_: float, L: float,
     res = session.solve(lam_)
     feat_mask = torch.as_tensor(res.feat_active).to(problem.X.dtype)
     return res.beta, float(res.gap), res.gap_history, feat_mask
+
+
+# ----------------------------------------------------------------------------
+# Static-analysis registration: the entry points the dispatch lints run
+# (repro_torch.analysis.registry is a leaf import — no cycle).  Each name
+# pairs with a template in repro_torch.analysis.entrypoints.
+# ----------------------------------------------------------------------------
+
+from ..analysis.registry import register_traceable  # noqa: E402
+
+register_traceable("dist_step_factory", make_dist_step,
+                   module=__name__, kind="factory")

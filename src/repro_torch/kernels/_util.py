@@ -13,7 +13,9 @@ path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple, Union
+import ctypes
+from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
+                    Tuple, Union)
 
 import torch
 
@@ -26,8 +28,12 @@ __all__ = [
     "raise_on_launch_error",
     "stream_handle",
     "LaunchSpec",
+    "Output",
+    "Tile",
+    "built_attributes",
     "launch_counts",
     "launch_metric_names",
+    "max_active",
     "on_hopper",
     "reset_launch_counts",
     "resolve_device",
@@ -55,15 +61,52 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
+class Tile(NamedTuple):
+    """Elements ``[start, stop)`` of one output of a launch, in its flat
+    layout, written by one block."""
+
+    output: str
+    start: int
+    stop: int
+
+
+class Output(NamedTuple):
+    """One output of a launch: ``elements`` in its flat layout, each
+    written by ``writers`` blocks.  More than one writer is a replicated
+    write: every one of them stores the same value (the CTAs of a BCD
+    cluster with beta kept in global memory)."""
+
+    name: str
+    elements: int
+    writers: int = 1
+
+
 class LaunchSpec(NamedTuple):
-    """Geometry of one kernel launch, exactly as handed to the launcher
-    (``cluster``: the thread-block cluster's shape, (1, 1, 1) for none)."""
+    """Geometry of one kernel launch, exactly as handed to the launcher.
+
+    ``cluster``: the thread-block cluster's shape, (1, 1, 1) for none;
+    ``variant``: which compiled instance of the source the launch runs (a
+    template's parameters, or which of the source's kernels), read by the
+    attribute and occupancy queries; ``outputs``: the :class:`Output` s the
+    launch writes; ``geometry``: the kernel module's geometry the launch is
+    sized from, which the wrapper reads its other launch arguments from,
+    and whose ``tile_map`` gives block coordinates ``(x, y, z)`` -> the
+    :class:`Tile` s that block writes (the static audit,
+    :mod:`repro_torch.analysis.launch_audit`, checks that the tiles give
+    every output element its declared number of writers)."""
 
     name: str
     grid: Tuple[int, int, int]
     block: Tuple[int, int, int]
     smem_bytes: int = 0
     cluster: Tuple[int, int, int] = (1, 1, 1)
+    variant: int = 0
+    outputs: Tuple[Output, ...] = ()
+    geometry: Any = None
+
+    @property
+    def tile_map(self) -> Optional[Callable[[int, int, int], Iterable[Tile]]]:
+        return None if self.geometry is None else self.geometry.tile_map
 
 
 class LaunchCounter:
@@ -138,3 +181,59 @@ def raise_on_launch_error(lib, prefix: str, code: int) -> None:
 def stream_handle() -> int:
     """PyTorch's current CUDA stream, as the integer handle a launcher takes."""
     return torch.cuda.current_stream().cuda_stream
+
+
+# The kernel's cudaFuncAttributes, in the order ``<source>_func_attributes``
+# writes them (csrc/launch_query.cuh).
+_ATTRIBUTES = ("num_regs", "static_smem_bytes", "max_threads_per_block",
+               "max_dynamic_smem_bytes", "local_bytes")
+
+
+def _query(spec: LaunchSpec, what: str):
+    from . import _build
+
+    lib = _build.library(spec.name)
+    fn = getattr(lib, f"{spec.name}_{what}")
+    ci = ctypes.c_int
+    fn.argtypes = {"func_attributes": [ci, ctypes.POINTER(ci)],
+                   "max_active_blocks": [ci, ci, ci],
+                   "max_active_clusters": [ci, ci]}[what]
+    fn.restype = ci
+    err = getattr(lib, f"{spec.name}_error_string")
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def built_attributes(spec: LaunchSpec) -> Dict[str, int]:
+    """The built kernel's attributes (``cudaFuncGetAttributes``) of the
+    instance ``spec`` launches: registers per thread, static shared memory,
+    the most threads a block of it may have, its dynamic shared-memory limit
+    as currently set, and local memory per thread.  Builds the kernels on
+    first use; raises without a CUDA device."""
+    lib, fn = _query(spec, "func_attributes")
+    out = (ctypes.c_int * len(_ATTRIBUTES))()
+    raise_on_launch_error(lib, spec.name, fn(spec.variant, out))
+    return dict(zip(_ATTRIBUTES, out))
+
+
+def max_active(spec: LaunchSpec) -> int:
+    """How many of the spec's blocks one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), or for a kernel
+    launched in clusters (its source exports ``<source>_max_active_clusters``;
+    the BCD kernels, whatever C) how many of its clusters the card holds at
+    once (``cudaOccupancyMaxActiveClusters``); the dynamic shared-memory
+    limit is raised to the spec's first where it is lower."""
+    from . import _build
+
+    C = spec.cluster[0] * spec.cluster[1] * spec.cluster[2]
+    threads = spec.block[0] * spec.block[1] * spec.block[2]
+    if hasattr(_build.library(spec.name), f"{spec.name}_max_active_clusters"):
+        lib, fn = _query(spec, "max_active_clusters")
+        got = fn(C, spec.smem_bytes)
+    else:
+        lib, fn = _query(spec, "max_active_blocks")
+        got = fn(spec.variant, threads, spec.smem_bytes)
+    if got < 0:
+        raise_on_launch_error(lib, spec.name, -got)
+    return got

@@ -25,11 +25,15 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..faults.errors import KernelLaunchError
+from ..launch.roofline import MAX_CLUSTER, SMEM_PER_BLOCK
 from . import _build
 from ._util import (
     LaunchCounter,
     LaunchSpec,
+    Output,
+    Tile,
     check_operand,
+    max_active,
     raise_on_launch_error,
     stream_handle,
 )
@@ -46,7 +50,6 @@ _KERNELS = {"lsq": ("bcd_epoch", 1, LAUNCHES),
 BLOCK = 512                 # 16 warps: 1 to 16 groups per chunk
 MAX_NG = 32                 # one lane per feature in the prox step
 MAX_K = 16                  # groups per chunk
-MAX_CLUSTER = 16            # CTAs per lambda (a non-portable cluster size)
 # C from the card's readings (tools/bcd_step_cost_torch.py, PERF.md): an
 # H100 holds 7 clusters of 16 CTAs at once (15 of 8), so B * C <= 64 keeps
 # every lambda's cluster resident (B = 8 with C = 16 took twice C = 8's
@@ -58,7 +61,7 @@ MIN_SLICE = 25              # samples per CTA below which C stops growing
 RING_MIN = 8                # fewer stages than this: read the design directly
 RING_PREF = 16              # stages beta in shared memory must leave
 RING_MAX = 64
-SMEM_LIMIT = 232_448        # bytes of shared memory a block may use (H100)
+SMEM_LIMIT = SMEM_PER_BLOCK  # bytes of shared memory a block may use
 
 
 class BcdGeometry(NamedTuple):
@@ -66,7 +69,8 @@ class BcdGeometry(NamedTuple):
     ``slices[r] = (j0, j1)``; ``stages`` ring stages of ``stage`` doubles
     (0: the design is read from global memory directly); chunks of at most
     ``kmax`` groups; beta in shared memory or not; the bytes of shared
-    memory per CTA (the layout of ``bcd_chunk.cuh``'s ``Layout``)."""
+    memory per CTA (the layout of ``bcd_chunk.cuh``'s ``Layout``); the
+    buffer's ``Gb`` groups of ``ng`` and its ``n`` samples."""
 
     cluster: int
     slices: Tuple[Tuple[int, int], ...]
@@ -75,6 +79,31 @@ class BcdGeometry(NamedTuple):
     kmax: int
     beta_in_smem: bool
     smem_bytes: int
+    Gb: int
+    n: int
+    ng: int
+
+    @property
+    def beta_writers(self) -> int:
+        """CTAs that write each element of beta[b]: with beta in shared
+        memory rank 0 stores it at the end; in global memory every rank
+        applies each change of beta[b] (bcd_chunk.cuh's pending write), with
+        the same values, computed from the same cluster-wide sums."""
+        return 1 if self.beta_in_smem else self.cluster
+
+    def tile_map(self, bx: int, by: int = 0, bz: int = 0):
+        """CTA ``bx`` is rank r = bx mod C of lambda b = bx div C's cluster:
+        it writes its sample slice of carry[b], and beta[b] when it is one
+        of :attr:`beta_writers` (with beta in global memory a rank writes
+        only the groups that change; the rest keep the copy of the input
+        the output starts as)."""
+        b, r = divmod(bx, self.cluster)
+        j0, j1 = self.slices[r]
+        tiles = [Tile("carry", b * self.n + j0, b * self.n + j1)]
+        if r < self.beta_writers:
+            m = self.Gb * self.ng
+            tiles.append(Tile("beta", b * m, (b + 1) * m))
+        return tiles
 
 
 def _r16(b: int) -> int:
@@ -137,9 +166,11 @@ def bcd_epoch_geometry(B: int, Gb: int, n: int, ng: int,
     while stages and kmax > stages // 2:
         kmax //= 2
     smem = _smem_bytes(carries, m_max, Gb, ng, stages, stage, in_smem)
-    return BcdGeometry(C, slices, stages, stage, kmax, in_smem, smem)
+    return BcdGeometry(C, slices, stages, stage, kmax, in_smem, smem, Gb, n,
+                       ng)
 
 
+@functools.lru_cache(maxsize=256)
 def bcd_epoch_launch_spec(B: int, Gb: int, n: int, ng: int,
                           loss: str = "lsq"):
     """``(LaunchSpec, beta_in_smem)`` of :func:`bcd_epoch_geometry`'s
@@ -147,7 +178,10 @@ def bcd_epoch_launch_spec(B: int, Gb: int, n: int, ng: int,
     geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
     name = _KERNELS[loss][0]
     return (LaunchSpec(name, (B * geo.cluster, 1, 1), (BLOCK, 1, 1),
-                       geo.smem_bytes, (geo.cluster, 1, 1)),
+                       geo.smem_bytes, (geo.cluster, 1, 1),
+                       outputs=(Output("beta", B * Gb * ng, geo.beta_writers),
+                                Output("carry", B * n)),
+                       geometry=geo),
             geo.beta_in_smem)
 
 
@@ -161,22 +195,13 @@ def _lib(name: str) -> ctypes.CDLL:
         launch.argtypes = ([vp, vp, vp, vp, vp, cd] + y
                            + [vp, vp, vp, vp] + [ci] * 11 + [vp])
         launch.restype = ctypes.c_int
-        occ = getattr(lib, f"{name}_max_active_clusters")
-        occ.argtypes = [ci, ci]
-        occ.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ci]
         err.restype = ctypes.c_char_p
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _active_clusters(name: str, C: int, smem_bytes: int) -> int:
-    lib = _lib(name)
-    got = getattr(lib, f"{name}_max_active_clusters")(C, smem_bytes)
-    if got < 0:
-        raise_on_launch_error(lib, name, -got)
-    return got
+_active_clusters = functools.lru_cache(maxsize=None)(max_active)
 
 
 def bcd_epoch_max_active_clusters(B: int, Gb: int, n: int, ng: int,
@@ -184,8 +209,7 @@ def bcd_epoch_max_active_clusters(B: int, Gb: int, n: int, ng: int,
     """How many of this launch's clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``); the launch's B clusters run in
     ceil(B / that) waves."""
-    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
-    return _active_clusters(_KERNELS[loss][0], geo.cluster, geo.smem_bytes)
+    return _active_clusters(bcd_epoch_launch_spec(B, Gb, n, ng, loss)[0])
 
 
 def bcd_epoch_cuda(Xt, Lg, w, fmask, lam_b, tau: float, beta, carry,
@@ -227,20 +251,21 @@ def bcd_epoch_cuda(Xt, Lg, w, fmask, lam_b, tau: float, beta, carry,
     carry_out = torch.empty_like(carry)
     if B == 0:
         return torch.empty_like(beta), carry_out
-    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
+    spec, _ = bcd_epoch_launch_spec(B, Gb, n, ng, loss)
+    geo = spec.geometry
     # beta kept in global memory is updated in place in the output.
     beta_out = torch.empty_like(beta) if geo.beta_in_smem else beta.clone()
-    if _active_clusters(name, geo.cluster, geo.smem_bytes) < 1:
-        raise KernelLaunchError(f"{name}: a cluster of {geo.cluster} CTAs with "
-                           f"{geo.smem_bytes} B of shared memory each cannot "
-                           "run on this device")
+    if _active_clusters(spec) < 1:
+        raise KernelLaunchError(f"{name}: a cluster of {spec.cluster[0]} CTAs "
+                                f"with {spec.smem_bytes} B of shared memory "
+                                "each cannot run on this device")
     lib = _lib(name)
     code = getattr(lib, f"{name}_launch")(
         Xt.data_ptr(), Lg.data_ptr(), w.data_ptr(), fmask.data_ptr(),
         lam_b.data_ptr(), float(tau), *labels, beta.data_ptr(),
         carry.data_ptr(), beta_out.data_ptr(), carry_out.data_ptr(), B, Gb,
-        n, ng, int(n_epochs), geo.cluster, geo.stages, geo.stage, geo.kmax,
-        int(geo.beta_in_smem), geo.smem_bytes, stream_handle())
+        n, ng, int(n_epochs), spec.cluster[0], geo.stages, geo.stage,
+        geo.kmax, int(geo.beta_in_smem), spec.smem_bytes, stream_handle())
     raise_on_launch_error(lib, name, code)
     counter.add()
     return beta_out, carry_out

@@ -71,6 +71,8 @@
 // No float atomics anywhere: two launches give the same bits.
 #pragma once
 #include <cooperative_groups.h>
+
+#include "launch_query.cuh"
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -526,15 +528,13 @@ int bcd_chunk_launch(const void* xt, const void* Lg, const void* w,
 
 // How many clusters of C CTAs with this shared memory the card can hold at
 // once (cudaOccupancyMaxActiveClusters); 0 means such a cluster cannot run.
+// The kernel's attributes are as they were before the call (the launcher
+// sets its own).
 template <bool kLogistic>
 int bcd_chunk_max_active_clusters(int C, int smem_bytes) {
   auto kernel = bcd_chunk_kernel<kLogistic>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return -static_cast<int>(err);
+  ScopedQueryAttributes<decltype(kernel)> scope(kernel, smem_bytes, C);
+  if (scope.error() != cudaSuccess) return -static_cast<int>(scope.error());
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -547,7 +547,8 @@ int bcd_chunk_max_active_clusters(int C, int smem_bytes) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 

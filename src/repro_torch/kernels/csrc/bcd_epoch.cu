@@ -81,6 +81,11 @@ extern "C" int bcd_epoch_max_active_clusters(int C, int smem_bytes) {
   return bcd_chunk_max_active_clusters<false>(C, smem_bytes);
 }
 
+extern "C" int bcd_epoch_func_attributes(int variant, int* out) {
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return write_func_attributes(bcd_chunk_kernel<false>, out);
+}
+
 extern "C" const char* bcd_epoch_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

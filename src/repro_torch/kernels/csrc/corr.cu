@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_query.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;                  // consumer warps
@@ -407,6 +409,19 @@ extern "C" int corr_launch(const void* xt, const void* theta, void* out, int p,
       static_cast<const double*>(xt), static_cast<const double*>(theta),
       static_cast<double*>(out), p, n, nc, R, S);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The static audit's queries (launch_query.cuh); variant = B.
+extern "C" int corr_func_attributes(int variant, int* out) {
+  const CorrKernel kernel = corr_instance(variant);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return write_func_attributes(kernel, out);
+}
+
+extern "C" int corr_max_active_blocks(int variant, int block, int smem) {
+  const CorrKernel kernel = corr_instance(variant);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_active_blocks(kernel, block, smem);
 }
 
 extern "C" const char* corr_error_string(int code) {

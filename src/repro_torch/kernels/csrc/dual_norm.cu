@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_query.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -225,6 +227,21 @@ extern "C" int sgl_dual_norm_launch(const void* corr, const void* w,
       static_cast<double*>(terms), static_cast<double*>(dmax),
       static_cast<double*>(partial), Gb, ng, width);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The static audit's queries (launch_query.cuh); variant 0 is the Lambda
+// kernel (dual_norm_launch), 1 the Omega^D kernel (sgl_dual_norm_launch).
+extern "C" int dual_norm_func_attributes(int variant, int* out) {
+  if (variant == 0) return write_func_attributes(dual_norm_kernel, out);
+  if (variant == 1) return write_func_attributes(sgl_dual_norm_kernel, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int dual_norm_max_active_blocks(int variant, int block, int smem) {
+  if (variant == 0) return max_active_blocks(dual_norm_kernel, block, smem);
+  if (variant == 1)
+    return max_active_blocks(sgl_dual_norm_kernel, block, smem);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* dual_norm_error_string(int code) {

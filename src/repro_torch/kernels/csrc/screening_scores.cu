@@ -18,6 +18,8 @@
 // TPU kernel's (256, 128) tiles are not carried over).
 #include <cuda_runtime.h>
 
+#include "launch_query.cuh"
+
 namespace {
 
 __global__ void screening_scores_kernel(const double* __restrict__ xt,
@@ -52,6 +54,18 @@ extern "C" int screening_scores_launch(const void* xt, const void* theta,
       static_cast<const double*>(xt), static_cast<const double*>(theta),
       static_cast<double*>(corr), static_cast<double*>(st2), p, n, tau);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The static audit's queries (launch_query.cuh); one instance, variant 0.
+extern "C" int screening_scores_func_attributes(int variant, int* out) {
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return write_func_attributes(screening_scores_kernel, out);
+}
+
+extern "C" int screening_scores_max_active_blocks(int variant, int block,
+                                                  int smem) {
+  if (variant != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_active_blocks(screening_scores_kernel, block, smem);
 }
 
 extern "C" const char* screening_scores_error_string(int code) {

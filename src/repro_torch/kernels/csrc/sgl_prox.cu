@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_query.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
@@ -168,6 +170,28 @@ extern "C" int sgl_prox_launch(const void* beta, const void* step,
   }
   return launch<float>(beta, step, w, L, L_per_lambda, L_scalar, out, rows, G,
                        ng, tile_rows, c1, c2, batched, grid, smem, s);
+}
+
+// The static audit's queries (launch_query.cuh); variant = 2 is_f64 +
+// batched, the two switches of sgl_prox_launch.
+extern "C" int sgl_prox_func_attributes(int variant, int* out) {
+  switch (variant) {
+    case 0: return write_func_attributes(sgl_prox_kernel<float, false>, out);
+    case 1: return write_func_attributes(sgl_prox_kernel<float, true>, out);
+    case 2: return write_func_attributes(sgl_prox_kernel<double, false>, out);
+    case 3: return write_func_attributes(sgl_prox_kernel<double, true>, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int sgl_prox_max_active_blocks(int variant, int block, int smem) {
+  switch (variant) {
+    case 0: return max_active_blocks(sgl_prox_kernel<float, false>, block, smem);
+    case 1: return max_active_blocks(sgl_prox_kernel<float, true>, block, smem);
+    case 2: return max_active_blocks(sgl_prox_kernel<double, false>, block, smem);
+    case 3: return max_active_blocks(sgl_prox_kernel<double, true>, block, smem);
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* sgl_prox_error_string(int code) {

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,13 +29,16 @@ from . import _build
 from ._util import (
     LaunchCounter,
     LaunchSpec,
+    Output,
+    Tile,
     check_operand,
     raise_on_launch_error,
     stream_handle,
 )
 
-__all__ = ["LAUNCHES", "dual_norm_cuda", "dual_norm_launch_spec",
-           "dual_norm_work", "group_width", "sgl_dual_norm_cuda",
+__all__ = ["DualNormGeometry", "LAUNCHES", "dual_norm_cuda",
+           "dual_norm_geometry", "dual_norm_launch_spec", "dual_norm_work",
+           "group_width", "sgl_dual_norm_cuda", "sgl_dual_norm_geometry",
            "sgl_dual_norm_launch_spec"]
 
 LAUNCHES = LaunchCounter("dual_norm")
@@ -51,17 +54,69 @@ def group_width(ng: int) -> int:
     return width
 
 
+class DualNormGeometry(NamedTuple):
+    """One dual-norm launch over B segments of G groups: ``width`` lanes
+    per group, ``per_block`` groups per block, ``grid`` (blocks per
+    segment, B); ``omega``: the Omega^D kernel (terms, a partial maximum
+    per block, dmax) rather than the Lambda kernel (Lambda per group)."""
+
+    width: int
+    per_block: int
+    grid: Tuple[int, int]
+    G: int
+    omega: bool
+
+    def tile_map(self, bx: int, by: int = 0, bz: int = 0):
+        """Block (bx, by) writes the groups [bx per_block, (bx + 1)
+        per_block) below G of segment by (their first lane), and the Omega^D
+        kernel also its partial maximum.  dmax is written by the block that
+        draws the last ticket, whichever it is, so it has no static tile."""
+        g0 = bx * self.per_block
+        g1 = min(g0 + self.per_block, self.G)
+        name = "terms" if self.omega else "out"
+        tiles = ([Tile(name, by * self.G + g0, by * self.G + g1)]
+                 if g0 < g1 else [])
+        if self.omega:
+            i = by * self.grid[0] + bx
+            tiles.append(Tile("partial", i, i + 1))
+        return tiles
+
+
+def dual_norm_geometry(G: int, ng: int) -> DualNormGeometry:
+    """The Lambda kernel's launch: a lane group of ``group_width(ng)``
+    threads per group, blocks of 256 threads over the G groups."""
+    width = group_width(ng)
+    return DualNormGeometry(width, BLOCK // width,
+                            (-(-G * width // BLOCK), 1), G, False)
+
+
+def sgl_dual_norm_geometry(Gb: int, ng: int, B: int) -> DualNormGeometry:
+    """The Omega^D kernel's launch: grid (blocks per lambda segment, B), so
+    no block straddles a segment."""
+    width = group_width(ng)
+    per_block = BLOCK // width
+    return DualNormGeometry(width, per_block, (-(-Gb // per_block), B), Gb,
+                            True)
+
+
+def _spec(geo: DualNormGeometry) -> LaunchSpec:
+    B = geo.grid[1]
+    outputs = ((Output("terms", B * geo.G),
+                Output("partial", geo.grid[0] * B))
+               if geo.omega else (Output("out", geo.G),))
+    return LaunchSpec("dual_norm", (*geo.grid, 1), (BLOCK, 1, 1), 0,
+                      variant=int(geo.omega), outputs=outputs, geometry=geo)
+
+
+@functools.lru_cache(maxsize=256)
 def dual_norm_launch_spec(G: int, ng: int) -> LaunchSpec:
-    threads = G * group_width(ng)
-    return LaunchSpec("dual_norm", (-(-threads // BLOCK), 1, 1),
-                      (BLOCK, 1, 1), 0)
+    return _spec(dual_norm_geometry(G, ng))
 
 
+@functools.lru_cache(maxsize=256)
 def sgl_dual_norm_launch_spec(Gb: int, ng: int, B: int) -> LaunchSpec:
     """Grid (blocks per lambda segment, B): no block straddles a segment."""
-    per_block = BLOCK // group_width(ng)
-    return LaunchSpec("dual_norm", (-(-Gb // per_block), B, 1),
-                      (BLOCK, 1, 1), 0)
+    return _spec(sgl_dual_norm_geometry(Gb, ng, B))
 
 
 def dual_norm_work(groups: int, ng: int) -> Tuple[float, float]:
@@ -110,10 +165,10 @@ def dual_norm_cuda(x: torch.Tensor, alpha: torch.Tensor,
     if G == 0:
         return out
     lib = _lib()
+    spec = dual_norm_launch_spec(G, ng)
     code = lib.dual_norm_launch(x.data_ptr(), alpha.data_ptr(), R.data_ptr(),
-                                out.data_ptr(), G, ng, group_width(ng),
-                                dual_norm_launch_spec(G, ng).grid[0],
-                                stream_handle())
+                                out.data_ptr(), G, ng, spec.geometry.width,
+                                spec.grid[0], stream_handle())
     raise_on_launch_error(lib, "dual_norm", code)
     LAUNCHES.add()
     return out
@@ -154,7 +209,7 @@ def sgl_dual_norm_cuda(corr: torch.Tensor, w: torch.Tensor, tau: float,
         corr.data_ptr(), w.data_ptr(),
         None if mask is None else mask.data_ptr(), float(tau),
         terms.data_ptr(), dmax.data_ptr(), dmax.data_ptr() + 8 * B, Gb, ng,
-        group_width(ng), blocks, B, stream_handle())
+        spec.geometry.width, blocks, B, stream_handle())
     raise_on_launch_error(lib, "dual_norm", code)
     LAUNCHES.add()
     return terms, dmax

@@ -23,11 +23,22 @@ from typing import Dict, Optional
 import torch
 
 from . import _util, ref
+from ..analysis.registry import register_kernel_audit
 from ..obs.metrics import REGISTRY, ScopeView
-from .bcd_epoch import bcd_epoch_cuda
-from .dual_norm import dual_norm_cuda, sgl_dual_norm_cuda
-from .screening_scores import screening_corr_cuda, screening_scores_cuda
-from .sgl_prox import sgl_prox_batched_cuda, sgl_prox_cuda
+from .bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec
+from .dual_norm import (
+    dual_norm_cuda,
+    dual_norm_launch_spec,
+    sgl_dual_norm_cuda,
+    sgl_dual_norm_launch_spec,
+)
+from .screening_scores import (
+    corr_launch_spec,
+    screening_corr_cuda,
+    screening_scores_cuda,
+    screening_scores_launch_spec,
+)
+from .sgl_prox import sgl_prox_batched_cuda, sgl_prox_cuda, sgl_prox_launch_spec
 
 __all__ = [
     "AuditCounters",
@@ -222,3 +233,49 @@ def audit_scope():
     kernels = _util.launch_metric_names()
     with REGISTRY.scope((_M_TRANSPOSE.name, *kernels.values())) as view:
         yield AuditCounters(view, kernels)
+
+
+# ---------------------------------------------------------------------------
+# Static-analysis registration: every kernel this module dispatches exposes
+# its launch geometry to repro_torch.analysis.launch_audit.  The builders
+# return the SAME LaunchSpec objects the wrappers hand their launchers, so
+# what the auditor checks is what runs.  Configs: the reference's
+# representative shapes (its kernels/ops.py registrations), and every full
+# width chip_smoke.py runs — the climate design (p = 73,584 = 10,512 groups
+# of 7, n = 814) and its 16,384-group buffer, the synthetic path's buffer
+# (128 groups of 10, n = 100) and the elastic design's (n = 10,100, where
+# the BCD kernel runs without its ring).
+# ---------------------------------------------------------------------------
+
+_AUDITS = {
+    # The reference's representative shapes.
+    "bcd_epoch/bucket": lambda: bcd_epoch_launch_spec(4, 256, 1024, 16)[0],
+    "bcd_epoch/paper-ng8": lambda: bcd_epoch_launch_spec(1, 64, 2048, 8)[0],
+    "bcd_epoch_logistic/bucket":
+        lambda: bcd_epoch_launch_spec(4, 256, 1024, 16, "logistic")[0],
+    "screening_scores/default": lambda: screening_scores_launch_spec(4096,
+                                                                     1024),
+    "corr/default": lambda: corr_launch_spec(4096, 1024, 1),
+    "dual_norm/paper-ng8": lambda: dual_norm_launch_spec(4096, 8),
+    "sgl_prox/paper-ng8": lambda: sgl_prox_launch_spec(4096, 8),
+    # The full widths of chip_smoke.py.
+    "corr/climate-b1": lambda: corr_launch_spec(73_584, 814, 1),
+    "corr/climate-b8": lambda: corr_launch_spec(73_584, 814, 8),
+    "screening_scores/climate": lambda: screening_scores_launch_spec(73_584,
+                                                                     814),
+    "bcd_epoch/climate-b4":
+        lambda: bcd_epoch_launch_spec(4, 16_384, 814, 7)[0],
+    "bcd_epoch_logistic/climate-b4":
+        lambda: bcd_epoch_launch_spec(4, 16_384, 814, 7, "logistic")[0],
+    "bcd_epoch/synthetic": lambda: bcd_epoch_launch_spec(1, 128, 100, 10)[0],
+    "bcd_epoch/elastic": lambda: bcd_epoch_launch_spec(1, 128, 10_100, 10)[0],
+    "dual_norm/climate": lambda: dual_norm_launch_spec(10_512, 7),
+    "dual_norm/omega-climate-b8":
+        lambda: sgl_dual_norm_launch_spec(16_384, 7, 8),
+    "sgl_prox/climate-f64": lambda: sgl_prox_launch_spec(10_512, 7, 8),
+    "sgl_prox/climate-f32": lambda: sgl_prox_launch_spec(10_512, 7, 4),
+    "sgl_prox/batched-b8-f64": lambda: sgl_prox_launch_spec(10_512, 7, 8, 8),
+    "sgl_prox/batched-b8-f32": lambda: sgl_prox_launch_spec(10_512, 7, 4, 8),
+}
+for _name, _builder in _AUDITS.items():
+    register_kernel_audit(_name, _builder)

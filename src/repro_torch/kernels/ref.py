@@ -11,8 +11,9 @@ from typing import Optional
 import torch
 
 __all__ = ["CHUNK", "bcd_chunked", "bcd_epochs_logistic_ref", "bcd_epochs_ref",
-           "corr_ref", "dual_norm_ref", "screening_scores_ref",
-           "sgl_dual_norm_ref", "sgl_prox_batched_ref", "sgl_prox_ref"]
+           "buffer_corr", "buffer_matvec", "corr_ref", "dual_norm_ref",
+           "screening_scores_ref", "sgl_dual_norm_ref", "sgl_prox_batched_ref",
+           "sgl_prox_ref"]
 
 
 def corr_ref(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -20,6 +21,25 @@ def corr_ref(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     if theta.dim() == 1:
         return Xt @ theta
     return theta @ Xt.T
+
+
+def buffer_corr(Xt: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """X_g^T v for every group of a group-major buffer: Xt (Gb, n, ng),
+    v (n,) -> (Gb, ng), or v (B, n) -> (B, Gb, ng).  One batched product
+    that reads Xt in place (an einsum over ``"gnk"`` first copies a
+    transposed Xt as large as the buffer)."""
+    if v.dim() == 1:
+        return torch.matmul(v, Xt)
+    return torch.matmul(v, Xt).transpose(0, 1)
+
+
+def buffer_matvec(Xt: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_g X_g b_g over a group-major buffer: Xt (Gb, n, ng), b (Gb, ng)
+    -> (n,), or b (B, Gb, ng) -> (B, n).  Reads Xt in place, as
+    :func:`buffer_corr` does."""
+    if b.dim() == 2:
+        return torch.matmul(Xt, b[:, :, None]).sum(0)[:, 0]
+    return torch.matmul(Xt, b.permute(1, 2, 0)).sum(0).T
 
 
 def sgl_prox_ref(beta: torch.Tensor, step: torch.Tensor, w: torch.Tensor,
@@ -115,7 +135,7 @@ def bcd_chunked(Xt, Lg, w, fmask, beta, carry, tau, lam_b, n_epochs: int, *,
                 sl = slice(g0, min(g0 + CHUNK, Gb))
                 Xc = Xt[sl]                                  # (k, n, ng)
                 bg = beta[b, sl]
-                z = (bg + torch.einsum("knq,n->kq", Xc, rho) / safe_L[sl, None]
+                z = (bg + buffer_corr(Xc, rho) / safe_L[sl, None]
                      ) * fmask[b, sl]
                 z = torch.sign(z) * torch.clamp(z.abs() - thr1[b, sl, None],
                                                 min=0.0)

@@ -25,17 +25,21 @@ from typing import NamedTuple
 
 import torch
 
+from ..launch.roofline import H100_SMS, SMEM_PER_BLOCK
 from . import _build
 from ._util import (
     LaunchCounter,
     LaunchSpec,
+    Output,
+    Tile,
     check_operand,
     raise_on_launch_error,
     stream_handle,
 )
 
-__all__ = ["LAUNCHES", "SCORES_LAUNCHES", "CorrGeometry", "corr_geometry",
-           "corr_launch_spec", "screening_corr_cuda", "screening_scores_cuda",
+__all__ = ["LAUNCHES", "SCORES_LAUNCHES", "CorrGeometry", "ScoresGeometry",
+           "corr_geometry", "corr_launch_spec", "screening_corr_cuda",
+           "screening_scores_cuda", "screening_scores_geometry",
            "screening_scores_launch_spec"]
 
 LAUNCHES = LaunchCounter("corr")
@@ -47,8 +51,7 @@ MAX_CHUNK = 4_096     # corr: widest column chunk at B = 1 (theta in smem)
 MAX_CHUNK_MMA = 1_024  # from B = 2 on: 8 warps x 32 blocks of 4 columns
 STAGE_BYTES = 80_000  # corr: target bytes of one ring stage
 MAX_STAGES = 4
-SMEM_LIMIT = 232_448  # bytes of shared memory a block may use (H100)
-H100_SMS = 132
+SMEM_LIMIT = SMEM_PER_BLOCK  # bytes of shared memory a block may use
 
 
 class CorrGeometry(NamedTuple):
@@ -57,7 +60,7 @@ class CorrGeometry(NamedTuple):
     (theta's staged width; ``n_chunks`` of them cover n); ``rows`` design
     rows per tile, ``tiles`` per chunk; ``stages`` the ring's depth; ``grid``
     the persistent CTAs; ``smem_bytes`` theta's chunk, the ring and its
-    barriers."""
+    barriers; ``p`` the design's rows."""
 
     B: int
     nc: int
@@ -67,6 +70,24 @@ class CorrGeometry(NamedTuple):
     stages: int
     grid: int
     smem_bytes: int
+    p: int
+
+    def tile_map(self, bx: int, by: int = 0, bz: int = 0):
+        """The rows CTA ``bx`` writes, as corr.cu's ``Walk`` gives them:
+        tiles t = bx, bx + grid, ... of ``rows`` rows (the last shorter),
+        each for all B residuals of the (B, p) output; the first column
+        chunk writes them (``out``), each later chunk k adds into them
+        once more (``out+chunk<k>``)."""
+        my_t = (self.tiles - 1 - bx) // self.grid + 1 if bx < self.tiles else 0
+        out = []
+        for ch in range(self.n_chunks):
+            name = "out" if ch == 0 else f"out+chunk{ch}"
+            for i in range(my_t):
+                r0 = (bx + i * self.grid) * self.rows
+                r1 = min(r0 + self.rows, self.p)
+                out += [Tile(name, b * self.p + r0, b * self.p + r1)
+                        for b in range(self.B)]
+        return out
 
 
 def _even(k: int) -> int:
@@ -122,14 +143,19 @@ def corr_geometry(p: int, n: int, B: int, sms: int = H100_SMS) -> CorrGeometry:
     tiles = -(-p // rows)
     return CorrGeometry(B, nc, n_chunks, rows, tiles, stages,
                         max(1, min(tiles, sms)),
-                        corr_smem_bytes(B, nc, rows, stages))
+                        corr_smem_bytes(B, nc, rows, stages), p)
 
 
+@functools.lru_cache(maxsize=256)
 def corr_launch_spec(p: int, n: int, B: int, sms: int = H100_SMS) -> LaunchSpec:
-    """Geometry of one launch over a (p, n) design and B <= 8 residuals."""
+    """The launch over a (p, n) design and B <= 8 residuals (the kernel's
+    template instance B), with :func:`corr_geometry`'s tile map."""
     geo = corr_geometry(p, n, B, sms)
+    outputs = tuple(Output("out" if ch == 0 else f"out+chunk{ch}", B * p)
+                    for ch in range(geo.n_chunks))
     return LaunchSpec("corr", (geo.grid, 1, 1), (CORR_BLOCK, 1, 1),
-                      geo.smem_bytes)
+                      geo.smem_bytes, variant=B, outputs=outputs,
+                      geometry=geo)
 
 
 def _lib() -> ctypes.CDLL:
@@ -170,21 +196,45 @@ def screening_corr_cuda(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     sms = _sm_count(Xt.device)
     for b0 in range(0, B, MAX_BATCH):
         bc = min(MAX_BATCH, B - b0)
-        geo = corr_geometry(p, n, bc, sms)
+        spec = corr_launch_spec(p, n, bc, sms)
+        geo = spec.geometry
         code = lib.corr_launch(Xt.data_ptr(), th[b0].data_ptr(),
                                out[b0].data_ptr(), p, n, bc, geo.nc,
-                               geo.rows, geo.stages, geo.grid,
-                               geo.smem_bytes, stream)
+                               geo.rows, geo.stages, spec.grid[0],
+                               spec.smem_bytes, stream)
         raise_on_launch_error(lib, "corr", code)
         LAUNCHES.add()
     return out[0] if single else out
 
 
+class ScoresGeometry(NamedTuple):
+    """One fused-scores launch over p design rows: a warp per row,
+    ``rows`` rows per block, ``grid`` blocks."""
+
+    rows: int
+    grid: int
+    p: int
+
+    def tile_map(self, bx: int, by: int = 0, bz: int = 0):
+        """Block ``bx`` writes corr and st2 at rows [bx rows, (bx + 1) rows)
+        below p (the kernel's warp-index mask)."""
+        r0, r1 = bx * self.rows, min((bx + 1) * self.rows, self.p)
+        return [Tile("corr", r0, r1), Tile("st2", r0, r1)] if r0 < r1 else []
+
+
+def screening_scores_geometry(p: int, n: int) -> ScoresGeometry:
+    """The launch of :func:`screening_scores_cuda` over a (p, n) design."""
+    rows = BLOCK // 32
+    return ScoresGeometry(rows, -(-p // rows), p)
+
+
+@functools.lru_cache(maxsize=256)
 def screening_scores_launch_spec(p: int, n: int) -> LaunchSpec:
     """Geometry of one fused-scores launch over a (p, n) design."""
-    rows = BLOCK // 32
-    return LaunchSpec("screening_scores", (-(-p // rows), 1, 1),
-                      (BLOCK, 1, 1), 0)
+    geo = screening_scores_geometry(p, n)
+    return LaunchSpec("screening_scores", (geo.grid, 1, 1), (BLOCK, 1, 1), 0,
+                      outputs=(Output("corr", p), Output("st2", p)),
+                      geometry=geo)
 
 
 def _scores_lib() -> ctypes.CDLL:

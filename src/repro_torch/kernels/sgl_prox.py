@@ -25,10 +25,13 @@ from typing import NamedTuple, Union
 
 import torch
 
+from ..launch.roofline import H100_SMS
 from . import _build
 from ._util import (
     LaunchCounter,
     LaunchSpec,
+    Output,
+    Tile,
     check_operand,
     raise_on_launch_error,
     stream_handle,
@@ -42,20 +45,29 @@ BLOCK = 256
 TILE_ROWS = 256          # rows per block at most
 MIN_TILE = 32            # and at least, unless SMEM_BUDGET holds fewer
 SMEM_BUDGET = 48 * 1024  # shared memory a block gets without opting in
-H100_SMS = 132
 DTYPES = (torch.float32, torch.float64)
 
 
 class ProxGeometry(NamedTuple):
-    """One launch over ``rows`` rows of ng entries: ``tile_rows`` rows per
-    block, ``grid`` blocks, ``smem_bytes`` of dynamic shared memory (the tile
-    and 16 bytes for its offset modulo 16)."""
+    """One launch over ``rows`` rows of ``ng`` entries: ``tile_rows`` rows
+    per block, ``grid`` blocks, ``smem_bytes`` of dynamic shared memory (the
+    tile and 16 bytes for its offset modulo 16)."""
 
     tile_rows: int
     grid: int
     smem_bytes: int
+    rows: int
+    ng: int
+
+    def tile_map(self, bx: int, by: int = 0, bz: int = 0):
+        """Block ``bx`` writes rows [bx tile_rows, (bx + 1) tile_rows) below
+        ``rows``: their entries of the flat output."""
+        r0 = bx * self.tile_rows
+        r1 = min(r0 + self.tile_rows, self.rows)
+        return [Tile("out", r0 * self.ng, r1 * self.ng)] if r0 < r1 else []
 
 
+@functools.lru_cache(maxsize=256)
 def sgl_prox_geometry(rows: int, ng: int, itemsize: int = 8) -> ProxGeometry:
     """Tiles of whole warps of rows, as wide as gives every SM two blocks
     (a small launch spreads over the card, where each block's load, prox and
@@ -68,13 +80,21 @@ def sgl_prox_geometry(rows: int, ng: int, itemsize: int = 8) -> ProxGeometry:
                          f"{itemsize} bytes, got {ng}")
     spread = -(-rows // (2 * H100_SMS))
     tile = min(TILE_ROWS, fit, max(MIN_TILE, -(-spread // 32) * 32))
-    return ProxGeometry(tile, -(-rows // tile), tile * ng * itemsize + 16)
+    return ProxGeometry(tile, -(-rows // tile), tile * ng * itemsize + 16,
+                        rows, ng)
 
 
-def sgl_prox_launch_spec(G: int, ng: int, itemsize: int = 8) -> LaunchSpec:
-    geo = sgl_prox_geometry(G, ng, itemsize)
+@functools.lru_cache(maxsize=256)
+def sgl_prox_launch_spec(G: int, ng: int, itemsize: int = 8,
+                         B: int = 0) -> LaunchSpec:
+    """The launch over beta (G, ng), or with ``B`` >= 1 over a batched
+    state (B, G, ng) (the kernel's batched instance); ``itemsize`` 8 for
+    float64, 4 for float32."""
+    rows = B * G if B else G
+    geo = sgl_prox_geometry(rows, ng, itemsize)
     return LaunchSpec("sgl_prox", (geo.grid, 1, 1), (BLOCK, 1, 1),
-                      geo.smem_bytes)
+                      geo.smem_bytes, variant=2 * (itemsize == 8) + (B > 0),
+                      outputs=(Output("out", rows * ng),), geometry=geo)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,14 +122,15 @@ def _check_beta(beta: torch.Tensor, dim: int) -> None:
 
 def _launch(beta, step, w, L_ptr, L_per_lambda, L_scalar, out, rows, G, ng,
             tau, lam, batched):
-    geo = sgl_prox_geometry(rows, ng, beta.element_size())
+    spec = sgl_prox_launch_spec(G, ng, beta.element_size(),
+                                rows // G if batched else 0)
     lib = _lib()
     code = lib.sgl_prox_launch(
         beta.data_ptr(), step.data_ptr(), w.data_ptr(), L_ptr, L_per_lambda,
-        L_scalar, out.data_ptr(), rows, G, ng, geo.tile_rows,
+        L_scalar, out.data_ptr(), rows, G, ng, spec.geometry.tile_rows,
         float(tau) * float(lam), (1.0 - float(tau)) * float(lam),
-        int(beta.dtype == torch.float64), batched, geo.grid, geo.smem_bytes,
-        stream_handle())
+        int(beta.dtype == torch.float64), batched, spec.grid[0],
+        spec.smem_bytes, stream_handle())
     raise_on_launch_error(lib, "sgl_prox", code)
     LAUNCHES.add()
 

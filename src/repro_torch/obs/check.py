@@ -23,6 +23,8 @@ Counterpart of ``repro/obs/check.py``.  Two passes, reported as
 
 Both passes accept injected inputs (``schema=``, ``counts=``) so tests can
 prove each finding fires on a seeded fixture without running the smoke.
+``--report`` writes the ``repro.analysis/v1`` payload as JSON, ``--md`` its
+markdown (:func:`repro_torch.launch.report.render_analysis_markdown`).
 """
 from __future__ import annotations
 
@@ -190,6 +192,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="schema audit only — skip the OB002 smoke solve")
     ap.add_argument("--report", metavar="OUT.json", default=None,
                     help="write the findings payload as JSON")
+    ap.add_argument("--md", metavar="OUT.md", default=None,
+                    help="write the markdown rendering "
+                         "(repro_torch.launch.report.render_analysis_markdown)")
     ap.add_argument("--device", default=None,
                     help="device of the smoke solve (default: the card; "
                          "'cpu' runs the kernels' plain versions)")
@@ -207,6 +212,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         with open(ns.report, "w") as f:
             json.dump(payload, f, indent=2)
         print(f"wrote {ns.report}")
+    if ns.md:
+        from ..launch.report import render_analysis_markdown
+
+        with open(ns.md, "w") as f:
+            f.write(render_analysis_markdown(payload))
+        print(f"wrote {ns.md}")
 
     summary = summarize([Finding(**f) for f in payload["findings"]])
     for f in payload["findings"]:

@@ -284,3 +284,14 @@ class CertificateStore:
             "loss_rejects": self.loss_rejects,
             "poison_drops": self.poison_drops,
         }
+
+
+# ----------------------------------------------------------------------------
+# Static-analysis registration: the entry points the dispatch lints run
+# (repro_torch.analysis.registry is a leaf import — no cycle).  Each name
+# pairs with a template in repro_torch.analysis.entrypoints.
+# ----------------------------------------------------------------------------
+
+from ..analysis.registry import register_traceable  # noqa: E402
+
+register_traceable("serve_warm_eval", warm_eval, module=__name__)

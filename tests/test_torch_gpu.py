@@ -638,3 +638,98 @@ def test_mesh_screen_round_on_nccl(hopper):
     torch.testing.assert_close(gapk, gapp, rtol=1e-12, atol=1e-9)
     torch.testing.assert_close(sck, scp, rtol=1e-12, atol=0)
     assert 0 < int(gk.sum()) < prob.G
+
+
+# ---------------------------------------------------------------------------
+# The static-analysis gate on the card: CU007 against the built kernels, and
+# the dispatch lints with the kernels.
+# ---------------------------------------------------------------------------
+
+def _audits():
+    from repro_torch.analysis.registry import kernel_audits
+
+    return kernel_audits()
+
+
+@pytest.mark.parametrize("name", sorted(_audits()))
+def test_built_kernel_agrees_with_its_spec(hopper, name):
+    """CU007 on the card: the built kernel takes the spec's block, its
+    static plus dynamic shared memory fit, and at least one block (one
+    cluster) of the launch fits — at every registered shape, the full
+    widths included."""
+    from repro_torch.analysis import launch_audit
+
+    spec = _audits()[name]()
+    findings, read = launch_audit.audit_built_kernel(spec)
+    assert findings == [], [str(f) for f in findings]
+    fits = read.get("clusters_on_card", read.get("blocks_per_sm"))
+    assert fits >= 1 and read["num_regs"] > 0
+    assert read["max_threads_per_block"] >= read["threads"]
+
+
+def test_audit_leaves_the_kernel_attributes_as_it_found_them(hopper):
+    """The occupancy queries raise a kernel's dynamic shared-memory limit
+    only for the length of the query: every built kernel's limit reads the
+    same before and after the whole audit, so a launcher that forgot its
+    own opt-in would still fail at its launch."""
+    from repro_torch.analysis import launch_audit
+    from repro_torch.kernels._util import built_attributes
+
+    specs = {name: build() for name, build in _audits().items()}
+    before = {name: built_attributes(spec)["max_dynamic_smem_bytes"]
+              for name, spec in specs.items()}
+    assert launch_audit.run(cuda=True) == []
+    after = {name: built_attributes(spec)["max_dynamic_smem_bytes"]
+             for name, spec in specs.items()}
+    assert after == before
+
+
+def test_audit_leaves_the_kernels_launchable(hopper):
+    """The occupancy queries never lower a kernel's dynamic shared-memory
+    limit: after the whole audit (whose smallest sgl_prox spec needs
+    2,064 B) the prox kernel still launches at the climate width within its
+    default 48 KB, and agrees with its plain version."""
+    from repro_torch.analysis import launch_audit
+
+    assert launch_audit.run(cuda=True) == []
+    gen = torch.Generator().manual_seed(0)
+    for B in (0, 8):
+        shape = (B, 10_512, 7) if B else (10_512, 7)
+        beta = torch.randn(shape, generator=gen, dtype=torch.float64)
+        w = torch.rand(10_512, generator=gen, dtype=torch.float64) + 0.5
+        if B:
+            lam_b = torch.linspace(0.1, 0.8, B, dtype=torch.float64)
+            got = sgl_prox_batched_cuda(beta.to(hopper), lam_b.to(hopper),
+                                        3.0, w.to(hopper), 0.4)
+            want = ref.sgl_prox_batched_ref(beta, lam_b, 3.0, w, 0.4)
+        else:
+            step = torch.rand(10_512, generator=gen, dtype=torch.float64)
+            got = sgl_prox_cuda(beta.to(hopper), step.to(hopper),
+                                w.to(hopper), 0.4, 0.3)
+            want = ref.sgl_prox_ref(beta, step, w, 0.4, 0.3)
+        torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_cu007_fires_on_a_spec_the_card_cannot_hold(hopper):
+    """A spec over the built kernel's limits: twice the shared memory a
+    block may have is refused by the card's query; a block larger than the
+    kernel's launch bounds exceeds its threads per block."""
+    from repro_torch.analysis import launch_audit
+
+    spec = _audits()["corr/climate-b1"]()
+    fs, _ = launch_audit.audit_built_kernel(spec._replace(
+        smem_bytes=2 * 232_448))
+    assert [f.code for f in fs] == ["CU007"]
+    fs, _ = launch_audit.audit_built_kernel(spec._replace(block=(1024, 1, 1)))
+    assert "CU007" in [f.code for f in fs]
+
+
+def test_analysis_gate_with_the_kernels(hopper):
+    """run_checks on the card: the dispatch lints' templates through the
+    kernels, every built kernel read (CU007); no error finding."""
+    from repro_torch.analysis.main import run_checks
+
+    payload = run_checks(device="cuda", cuda=True)
+    assert payload["ok"], [f for f in payload["findings"]
+                           if f["severity"] == "error"]
+    assert set(payload["passes"]["launch"]["built"]) == set(_audits())

@@ -56,6 +56,13 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.core.elastic, repro_torch.core.path\n"
         "import repro_torch.distributed, repro_torch.launch.mesh\n"
         "import repro_torch.faults.chaos, repro_torch.faults.__main__\n"
+        "import repro_torch.analysis, repro_torch.analysis.registry\n"
+        "import repro_torch.analysis.cert_lint, repro_torch.analysis.main\n"
+        "import repro_torch.analysis.launch_audit\n"
+        "import repro_torch.analysis.dispatch_lints\n"
+        "import repro_torch.analysis.entrypoints\n"
+        "import repro_torch.analysis.__main__\n"
+        "import repro_torch.launch.report, repro_torch.launch.reanalyze\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -147,6 +154,20 @@ def test_chaos_matrix_without_device_raises_without_gpu():
         main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--check"])
+
+
+def test_analysis_gate_without_device_raises_without_gpu():
+    _no_cuda()
+    from repro_torch.analysis.__main__ import main
+    from repro_torch.analysis.entrypoints import default_entry_specs
+    from repro_torch.analysis.main import run_checks
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_checks()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--check"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        default_entry_specs()
 
 
 def test_elastic_without_device_raises_without_gpu():

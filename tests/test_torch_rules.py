@@ -30,7 +30,7 @@ from repro.rules import StrongSequentialRule as JStrong
 from repro.rules import available_rules as j_available_rules
 from repro.rules import get_rule as j_get_rule
 from repro_torch.convert import problem_from_reference, rule_from_reference
-from repro_torch.core import SGLSession, SolverConfig, screen_round
+from repro_torch.core import SGLSession, SolverConfig, lambda_grid, screen_round
 from repro_torch.core import screening as scr
 from repro_torch.core import sgl
 from repro_torch.kernels import ops, ref
@@ -275,6 +275,53 @@ def test_rule_paths_are_safe_against_tight_unscreened_reference(rule):
         leaked = np.abs(np.asarray(beta))[~tr.feat_active[t] & fm]
         assert leaked.size == 0 or leaked.max() < 1e-8, (rule, t)
     assert (tr.group_active_frac < 1).any()
+
+
+def _matrix_reference():
+    """The safety matrix's problem in both packages, and the tight-tol
+    unscreened reference path of the JAX package down its grid (the
+    reference's ``ref_path``: tol 1e-10, rule "none", warm-started)."""
+    if "matrix" not in _CACHE:
+        X, y, _, sizes = make_synthetic(n=30, p=120, n_groups=15, gamma1=3,
+                                        gamma2=3, seed=9)
+        jp = j_make_problem(X, y, sizes, tau=0.3)
+        tp = problem_from_reference({f: np.asarray(getattr(jp, f))
+                                     for f in jp._fields}, device="cpu")
+        ref_s = JSession(jp, JConfig(tol=1e-10, rule="none",
+                                     max_epochs=60_000))
+        lambdas = lambda_grid(ref_s.lam_max, T=5, delta=1.5)
+        betas, beta = [], jnp.zeros((jp.G, jp.ng), jp.X.dtype)
+        for lam_ in lambdas:
+            beta = ref_s.solve(float(lam_), beta0=beta).beta
+            betas.append(np.asarray(beta))
+        _CACHE["matrix"] = (tp, lambdas, np.stack(betas))
+    return _CACHE["matrix"]
+
+
+@pytest.mark.parametrize("rule_name",
+                         ["gap", "static", "dynamic", "dst3", "none"])
+def test_safe_rule_matrix_path(rule_name):
+    """Every registered is_safe rule passes the path-safety invariant on the
+    port's solve_path (the "cuda" backends, their plain versions on CPU
+    tensors): nothing it screens is nonzero in the tight-tol unscreened
+    reference path."""
+    tp, lambdas, ref_betas = _matrix_reference()
+    rule = get_rule(rule_name)
+    assert rule.is_safe
+    session = SGLSession(tp, SolverConfig(tol=1e-7, rule=rule,
+                                          max_epochs=30_000,
+                                          screen_backend="cuda",
+                                          solver_backend="cuda"),
+                         device="cpu")
+    path = session.solve_path(lambdas=lambdas)
+    assert (path.gaps <= 1e-7).all()
+    assert path.certificates_safe
+    assert path.rule_name == rule_name
+    fm = tp.feat_mask.numpy()
+    for t in range(len(path.lambdas)):
+        leaked = np.abs(ref_betas[t])[~path.feat_active[t] & fm]
+        assert leaked.size == 0 or leaked.max() < 1e-7, (rule_name, t)
+    np.testing.assert_allclose(path.betas, ref_betas, atol=1e-5)
 
 
 def test_static_rule_pre_screens_through_the_fused_scores():
