@@ -44,7 +44,20 @@ paths through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
   the dual-norm kernel; each against a plain-backend rerun on the same
   mesh and the single-device GAP solution at tol 1e-10;
 * the chaos matrix (``repro_torch.faults.chaos.run_matrix``) on the card:
-  16 fault scenarios, no unsafe certificate, no hung future, no demotion.
+  16 fault scenarios, no unsafe certificate, no hung future, no demotion;
+* the LM stack (``repro_torch.models``, ``train``, ``launch.train``): the
+  registry's ``demo`` LM served (prefill and 31 greedy decode steps, the
+  same tokens as on the CPU) and trained 100 steps with the SGL
+  regularizer, whose prox runs on the sgl_prox kernel (the first step's
+  launches held against the plain version), restarted from its step-50
+  checkpoint (the same losses bit for bit), again at a strength that
+  zeroes neuron groups (every launch of that run held against the plain
+  version and against the prox's own change); the other model families'
+  forward, prefill and decode; and ``launch.train --solver`` (the mesh
+  strategy on an f32 problem, its Omega^D on the dual-norm kernel's float
+  instance), held against the same solve with the plain backends on the
+  card and on the CPU: the same support, each one's screened groups zero
+  in the other's solution, the screened counts within one.
 
 dual_norm is held against its plain version through both entries (Lambda
 per group, and a round's whole Omega^D with its maximum per lambda, with and
@@ -129,6 +142,35 @@ MESH_CLIMATE = dict(name="mesh-climate", tau=0.4, tol=1e-6, T=20, delta=2.5,
                     solve=8, plain=2, max_epochs=60_000)
 MESH_SYNTHETIC = dict(name="mesh-synthetic", tau=SYNTHETIC["tau"], tol=1e-6,
                       T=40, delta=3.0, solve=12, plain=12)
+# The lm phase: the demo LM served (prefill of 4 prompts of 32 tokens, 31
+# greedy decode steps) and trained with the SGL regularizer, its prox on the
+# sgl_prox kernel (demo's FFN: 4 (F, D) = (128, 64) f32 leaves a step).
+LM_SERVE = dict(batch=4, prompt=32, decode=31)
+LM_TRAIN = dict(steps=100, batch=16, seq=64, lr=1e-3, sgl_lam=3e-4,
+                sgl_tau=0.3, ckpt_every=50)
+# lam 3e-4 thresholds a neuron at (1 - tau) sqrt(D) lam lr = 1.7e-6 a step,
+# far below the neurons' norms (~1): it zeroes none in 100 steps.  A second
+# run at lam 1.5 (8.4e-3 a step) zeroes part of them (84% in 100 steps on
+# the CPU).
+LM_SPARSE_LAM = 1.5
+LM_KERNELS = ("sgl_prox",)
+LM_IDLE = ("corr", "bcd_epoch", "bcd_epoch_logistic", "screening_scores",
+           "dual_norm")
+LM_PROX_REL = 2.4e-7      # kernel against plain, f32 (two f32 roundings)
+# The sparse run's prox, every call against the plain version: rows just
+# above their threshold magnify the norm's last bit through 1 - t2 / ||z||
+# (6.7e-7 of the leaf's largest entry measured on the card), so 1e-5 of it,
+# the reference's f32 kernel tolerance; and at most 1e-2 of the largest
+# change the prox makes (a kernel that returns its input reads 1, one that
+# skips the l1 soft-threshold ~0.1).
+LM_SPARSE_PROX_REL = 1e-5
+LM_PROX_OF_CHANGE = 1e-2
+# check_prox's LM leaf: lam 120 zeroes part of the 128 rows at step lr.
+LM_PROX_CHECK_LAM = 120.0
+# The solver mode on the reference's default problem (n = 100, p = 1,000,
+# 100 groups, f32): its gap is rounded to multiples of ~2^-7 there, so tol
+# sits above that rounding.
+LM_SOLVER = ("--solver", "--tol", "0.1")
 SAFETY_TOL = 1e-10
 LEAK = 1e-8               # |beta| a screened variable may have at SAFETY_TOL
 # A Theorem-1 test whose value lies this close (relative) to its threshold
@@ -491,13 +533,17 @@ def check_dual_norm(prob, Xt):
     with tied entries and scaled by 1e-170 and 1e+170, and on a one-entry
     group at the smallest normal double; Omega^D (``sgl_dual_norm_cuda``)
     at B = 1 and, over four residuals, at B = 4 with a random mask, also at
-    both scales; its maxima equal the plain maxima within 1e-12.  Times both
+    both scales; its maxima equal the plain maxima within 1e-12.  Omega^D's
+    float instance at launch.train --solver's problem and at the climate
+    width, within 1e-5 relative of the plain version in f32.  Times both
     entries and the Omega^D chain as the parent commit's solver ran it (the
     eps ops, the Lambda kernel, a divide and a max) beside this one's single
     launch, from CUDA graphs and in loops, with the launch floor.  Returns
     the kernel's record."""
+    import numpy as np
     import torch
-    from repro_torch.core import sgl
+    from repro_torch.core import make_problem, sgl
+    from repro_torch.data import make_synthetic
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dual_norm import (
         dual_norm_cuda,
@@ -553,6 +599,34 @@ def check_dual_norm(prob, Xt):
         log(f"kernel dual_norm ({label}): max_rel_err={rel:.3e} tol=1e-12 "
             f"relative ok={rel <= 1e-12}")
     bad = [label for label, (rel, _) in errs.items() if not rel <= 1e-12]
+
+    # The Omega^D kernel's float instance against the plain version in f32:
+    # at launch.train --solver's problem (f32, 100 groups of 10, at X^T y),
+    # and at the climate width narrowed to f32 (B = 4 masked).  Tolerance
+    # 1e-5 relative, f32's as for the prox.
+    X32, y32, _, sizes32 = make_synthetic(n=100, p=1000, n_groups=100,
+                                          dtype=np.float32)
+    solver32 = make_problem(X32, y32, sizes32, tau=0.2)
+    c32 = torch.einsum("ngk,n->gk", solver32.X, solver32.y)
+    f32_cases = {
+        "omega_d solver f32": (
+            lambda: sgl_dual_norm_cuda(c32, solver32.w, 0.2, None, 1),
+            lambda: ref.sgl_dual_norm_ref(c32, 0.2, solver32.w, None, 1)),
+        "omega_d B=4 masked f32": (
+            lambda: sgl_dual_norm_cuda(corr4.float(), w.float(), tau, mask,
+                                       4),
+            lambda: ref.sgl_dual_norm_ref(corr4.float(), tau, w.float(),
+                                          mask, 4)),
+    }
+    errs32 = {}
+    for label, (kernel, plain) in f32_cases.items():
+        got, want = kernel(), plain()
+        if got[0].dtype != torch.float32:
+            raise AssertionError(f"dual_norm ({label}): {got[0].dtype} out")
+        errs32[label] = max(rel_err(a, b) for a, b in zip(got, want))
+        log(f"kernel dual_norm ({label}): max_rel_err={errs32[label]:.3e} "
+            f"tol=1e-5 relative ok={errs32[label] <= 1e-5}")
+    bad += [label for label, rel in errs32.items() if not rel <= 1e-5]
     if bad:
         raise AssertionError(f"dual_norm kernel disagrees with its plain "
                              f"version: {bad}")
@@ -608,7 +682,8 @@ def check_dual_norm(prob, Xt):
         library_ms=None, omega_d_ms=ms["omega_d B=1"][0],
         omega_d_loop_ms=ms["omega_d B=1"][1],
         omega_d_b4_ms=ms["omega_d B=4 masked"][0],
-        omega_d_bound_ms=b_sgl, chain_before_ms=ms["chain before"][0],
+        omega_d_bound_ms=b_sgl, max_rel_err_f32=max(errs32.values()),
+        chain_before_ms=ms["chain before"][0],
         chain_before_loop_ms=ms["chain before"][1], launch_floor_ms=floor)
 
 
@@ -617,11 +692,14 @@ def check_prox(prob, lam_max: float):
     (4,096, 8) in f64 and f32, the climate problem's width (10,512, 7) at its
     real w and tau = 0.4 (a gradient step from 0 at lambda_max / 2), and the
     batched mode over B = 8 lambdas at that width (one launch that forms the
-    steps).  Tolerance: rtol = atol = 1e-12 in f64 and 1e-5 in f32, as the
-    reference's kernel tests.  Each row prints its share of the byte bound
-    and the card's floor for one launch.  Returns the record of the
-    (4,096, 8) f64 case (the harness's shape), with the climate and batched
-    rows' times beside it; max_abs_err is the largest over all rows."""
+    steps), and one leaf of the LM trainer's prox ((128, 64) f32, step lr,
+    w = sqrt(64)) at lam 120, which zeroes part of its rows (it must zero
+    some and keep some).  Tolerance: rtol = atol = 1e-12 in f64 and 1e-5 in
+    f32, as the reference's kernel tests.  Each row prints its share of the byte
+    bound and the card's floor for one launch.  Returns the record of the
+    (4,096, 8) f64 case (the harness's shape), with the climate, batched
+    and LM rows' times beside it; max_abs_err is the largest over all
+    rows."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.sgl_prox import sgl_prox_cuda
@@ -662,6 +740,17 @@ def check_prox(prob, lam_max: float):
                   lambda: ref.sgl_prox_ref(beta_b.reshape(B * G, ng), step_b,
                                            w_b, prob.tau, 1.0).reshape(B, G, ng),
                   (G, ng, B)))
+    # the LM trainer's launch: one demo FFN leaf, 128 neuron rows of 64
+    rows = (torch.randn((128, 64), generator=gen, dtype=torch.float64,
+                        device=dev) * 0.125).to(torch.float32)
+    step_l = torch.full((128,), LM_TRAIN["lr"], dtype=torch.float32,
+                        device=dev)
+    w_l = torch.full((128,), 8.0, dtype=torch.float32, device=dev)
+    lam_l, tau_l = LM_PROX_CHECK_LAM, LM_TRAIN["sgl_tau"]
+    cases.append(("lm demo leaf (128, 64) float32", torch.float32,
+                  lambda: sgl_prox_cuda(rows, step_l, w_l, tau_l, lam_l),
+                  lambda: ref.sgl_prox_ref(rows, step_l, w_l, tau_l, lam_l),
+                  (128, 64, 1)))
     record = None
     floor = floor_ms()
     for label, dtype, kernel, plain, (g, k, b) in cases:
@@ -685,6 +774,11 @@ def check_prox(prob, lam_max: float):
         if not ok:
             raise AssertionError(f"sgl_prox kernel disagrees with its plain "
                                  f"version ({label})")
+        if (g, k) == (128, 64):
+            zero = int((got.abs().sum(-1) == 0).sum())
+            if not 0 < zero < g:
+                raise AssertionError(f"sgl_prox ({label}): {zero} of {g} rows "
+                                     "zeroed; the row must zero some, not all")
         if record is None:
             record = dict(
                 name="sgl_prox", route="cuda",
@@ -698,6 +792,9 @@ def check_prox(prob, lam_max: float):
                           bound_ms_b8=b_ms)
         if dtype == torch.float64 and b == 1 and g == G:
             record.update(ms_climate=ms, bound_ms_climate=b_ms)
+        if (g, k) == (128, 64):
+            record.update(ms_lm=ms, loop_ms_lm=loop, plain_ms_lm=plain_ms,
+                          bound_ms_lm=b_ms)
         record["max_abs_err"] = max(record["max_abs_err"], err)
     return record
 
@@ -1772,6 +1869,437 @@ def run_chaos():
     return counts, record
 
 
+def _lm_cfg(name: str):
+    """The reduced configs of the model families other than dense (those of
+    ``tests/test_models_smoke.py``), built from the port's config classes."""
+    from repro_torch.configs.base import ArchConfig, MoEConfig
+
+    common = dict(n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
+                  vocab=256, head_dim=16)
+    return {
+        "moe": ArchConfig(name="olmoe-1b-7b", family="moe", **common,
+                          moe=MoEConfig(n_experts=8, top_k=2), ssm_chunk=8),
+        "vlm": ArchConfig(name="llava-next-mistral-7b", family="vlm",
+                          **common, frontend_tokens=8, ssm_chunk=8),
+        "ssm": ArchConfig(name="mamba2-2.7b", family="ssm", n_layers=2,
+                          d_model=64, n_heads=0, n_kv=0, d_ff=128, vocab=256,
+                          ssm_state=16, ssm_heads=4, ssm_head_dim=16,
+                          ssm_chunk=8, conv_width=4, subquadratic=True),
+        "hybrid": ArchConfig(name="recurrentgemma-2b", family="hybrid",
+                             **{**common, "n_layers": 3, "n_kv": 1},
+                             window=32, hybrid_pattern=("rec", "rec", "attn"),
+                             ssm_chunk=8, conv_width=4, subquadratic=True),
+        "encdec": ArchConfig(name="seamless-m4t-large-v2", family="encdec",
+                             **common, n_enc_layers=2, frontend_tokens=8,
+                             ssm_chunk=8),
+    }[name]
+
+
+def lm_serve(api, params, prompts, decode: int, dev):
+    """Greedy serving: prefill ``prompts``, then ``decode`` steps.  Returns
+    (tokens (B, decode + 1), logits (B, decode + 1, V), prefill s, decode s
+    per step)."""
+    import torch
+
+    S = prompts.shape[1]
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, prompts, cache_len=S + decode,
+                                dtype=torch.float32)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1)
+    toks, outs = [tok], [logits]
+    t0 = time.perf_counter()
+    for i in range(decode):
+        logits, cache = api.decode_step(params, cache, tok, S + i)
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+        outs.append(logits)
+    sync()
+    per_tok = (time.perf_counter() - t0) / decode
+    return (torch.stack(toks, 1).cpu(), torch.stack(outs, 1).cpu(),
+            t_prefill, per_tok)
+
+
+def run_lm_serve(dev):
+    """The demo LM served on ``dev`` and on the CPU from the same
+    parameters (drawn from one CPU generator): equal greedy tokens (at a
+    first difference the card's top-2 margin there is printed), and the
+    card's decode logits against its own forward over the same tokens
+    (2e-3, the reference test's tolerance)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import DEMO
+    from repro_torch.models import build
+
+    api = build(DEMO)
+    params = api.init_params(dtype=torch.float32, device=dev)
+    cpu_params = api.init_params(dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(2, DEMO.vocab, size=(LM_SERVE["batch"],
+                                                 LM_SERVE["prompt"]))
+    n = LM_SERVE["decode"]
+    lm_serve(api, params, torch.as_tensor(prompts, device=dev), n, dev)
+    toks, logits, t_pre, per_tok = lm_serve(
+        api, params, torch.as_tensor(prompts, device=dev), n, dev)
+    ctoks, _, c_pre, c_per_tok = lm_serve(
+        api, cpu_params, torch.as_tensor(prompts), n, torch.device("cpu"))
+    diff = (toks != ctoks).any(dim=0).nonzero()
+    margin = None
+    if len(diff):
+        j = int(diff[0])
+        top2 = torch.topk(logits[:, j], 2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        log(f"lm serve: tokens differ from the CPU's at step {j}; the card's "
+            f"smallest top-2 margin there {margin:.3e}")
+    seq = torch.cat([torch.as_tensor(prompts), toks[:, :-1]], dim=1).to(dev)
+    with torch.no_grad():
+        full, _ = api.forward(params, seq)
+    S = LM_SERVE["prompt"]
+    dec_err = float((full[:, S - 1:].cpu() - logits).abs().max())
+    record = dict(batch=LM_SERVE["batch"], prompt=S, decode_steps=n,
+                  prefill_ms=t_pre * 1e3, decode_ms_per_token=per_tok * 1e3,
+                  cpu_prefill_ms=c_pre * 1e3,
+                  cpu_decode_ms_per_token=c_per_tok * 1e3,
+                  tokens_equal_cpu=not len(diff), top2_margin=margin,
+                  decode_vs_forward_max_abs=dec_err,
+                  sample=toks[0, :16].tolist())
+    log(f"lm serve: {json.dumps(record)}")
+    if len(diff):
+        raise AssertionError("lm serve: greedy tokens on the card differ "
+                             "from the CPU's")
+    if dec_err > 2e-3:
+        raise AssertionError(f"lm serve: decode against forward {dec_err:.3e}")
+    return record
+
+
+class _ProxCheck:
+    """Spy on ``ops.sgl_prox`` during a training run: its first ``calls``
+    calls (every call with None) are held against
+    ``kernels.ref.sgl_prox_ref`` on the same rows, outside the counted
+    launches (the plain version launches no kernel).  Per call it keeps on
+    the device, so the step waits for nothing: the largest |out - plain|
+    over the largest |plain| (``rel``), the same over the largest change
+    the prox makes, |plain - in| (``of_change``), and the rows the prox
+    zeroes (``zeroed``)."""
+
+    def __init__(self, calls=None):
+        self.calls, self.stats = calls, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops, ref
+
+        self.ops, self.real = ops, ops.sgl_prox
+
+        def spy(beta, step, w, tau, lam):
+            out = self.real(beta, step, w, tau, lam)
+            if self.calls is None or len(self.stats) < self.calls:
+                want = ref.sgl_prox_ref(beta, step, w, tau, lam)
+                err = (out - want).abs().max()
+                zeroed = (want == 0).all(-1) & (beta != 0).any(-1)
+                self.stats.append(torch.stack([
+                    err / want.abs().max().clamp(min=1e-30),
+                    err / (want - beta).abs().max().clamp(min=1e-30),
+                    zeroed.sum().to(err.dtype)]))
+            return out
+
+        ops.sgl_prox = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.sgl_prox = self.real
+
+    def result(self) -> dict:
+        """The calls held, their largest ``rel`` and ``of_change``, and the
+        rows zeroed over all of them."""
+        import torch
+
+        if not self.stats:
+            return dict(calls=0, rel=None, of_change=None, zeroed=0)
+        st = torch.stack(self.stats).cpu()
+        return dict(calls=len(self.stats), rel=float(st[:, 0].max()),
+                    of_change=float(st[:, 1].max()),
+                    zeroed=int(st[:, 2].sum()))
+
+
+def lm_train_args(ckpt: str, steps: int, sgl_lam: float, dev):
+    from repro_torch.launch.train import parse_args
+
+    t = LM_TRAIN
+    argv = ["--arch", "demo", "--steps", str(steps), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--lr", str(t["lr"]),
+            "--sgl-lam", str(sgl_lam), "--sgl-tau", str(t["sgl_tau"]),
+            "--ckpt-every", str(t["ckpt_every"]), "--device", str(dev)]
+    return parse_args(argv + (["--ckpt-dir", ckpt] if ckpt else []))
+
+
+def counted(label, fn, kernels, idle):
+    """``fn()`` with every launch count zeroed just before and read just
+    after; ``kernels`` must have launched, ``idle`` not.  Returns (its
+    result, the counts)."""
+    import torch
+    from repro_torch.kernels import _util
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _util.launch_counts()
+    for name in kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} never launched")
+    for name in idle:
+        if counts[name] != 0:
+            raise AssertionError(f"{label}: kernel {name} launched off its "
+                                 "path")
+    return out, counts
+
+
+def lm_solver_plain(solver: dict, dev) -> dict:
+    """``launch.train``'s ``LM_SOLVER`` problem solved again at its lam and
+    L with the plain backends on ``dev`` (no kernel launches), on the mesh
+    of the process group in place: its FISTA steps, active and screened
+    groups."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SGLSession, SolverConfig, make_problem
+    from repro_torch.data import make_synthetic
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import parse_args
+
+    a = parse_args(list(LM_SOLVER))
+    X, y, _, sizes = make_synthetic(n=a.n, p=a.p, n_groups=a.groups,
+                                    dtype=np.float32)
+    prob = make_problem(X, y, sizes, tau=a.tau, device=dev)
+    cfg = SolverConfig(tol=a.tol, max_epochs=5000, screen_backend="torch",
+                       solver_backend="torch")
+    session = SGLSession(prob, cfg, mesh=make_test_mesh(dev), L=solver["L"],
+                         device=dev)
+    r = session.solve(solver["lam"])
+    support = torch.any(torch.as_tensor(r.beta).abs() > 0, dim=1).cpu()
+    kept = torch.as_tensor(r.group_active).cpu()
+    return dict(gap=float(r.gap), fista_steps=int(r.n_epochs),
+                active=int(support.sum()), screened=a.groups - int(kept.sum()),
+                support=torch.nonzero(support).flatten().tolist(),
+                screened_groups=torch.nonzero(~kept).flatten().tolist())
+
+
+def solves_agree(a: dict, b: dict) -> bool:
+    """Two f32 solves of the ``LM_SOLVER`` problem agree: both gaps within
+    tol, the same support, the groups either screens zero in the other's
+    solution, the screened counts within one and the FISTA steps within one
+    screening round (10).  The f32 gap is rounded to multiples of 2^-10
+    there; the kernels' last bits (sgl_prox sums a row's squares in its own
+    order) move the last round's gap by a few such units, which can carry
+    one Theorem-1 test across its threshold."""
+    tol = a["tol"]
+    return (a["gap"] <= tol and b["gap"] <= tol
+            and a["support"] == b["support"]
+            and not set(a["screened_groups"]) & set(b["support"])
+            and not set(b["screened_groups"]) & set(a["support"])
+            and abs(a["screened"] - b["screened"]) <= 1
+            and abs(a["fista_steps"] - b["fista_steps"]) <= 10)
+
+
+def run_lm(dev=None):
+    """The LM stack on the card: the demo LM served and trained with the
+    SGL regularizer (the prox on the sgl_prox kernel, every launch of the
+    first step held against the plain version), restarted from its step-50
+    checkpoint, trained again at a strength that zeroes neuron groups
+    (every launch held), the other families' forward, prefill and decode,
+    and ``launch.train --solver`` on the mesh of one NCCL rank against the
+    same solve with the plain backends on the card and on the CPU.  Leaves no process group behind.  Returns
+    (launch counts, the phase's record)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import run_train
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda" if dev is None else dev)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    serve = run_lm_serve(dev)
+
+    ckpt = ROOT / "build" / "lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps, every = LM_TRAIN["steps"], LM_TRAIN["ckpt_every"]
+    leaves = 2 * 2                        # demo: 2 layers x (w1, w3)
+    with _ProxCheck(leaves) as check:
+        full, counts = counted(
+            "lm train", lambda: run_train(lm_train_args(
+                str(ckpt), steps, LM_TRAIN["sgl_lam"], dev)), LM_KERNELS, LM_IDLE)
+    add(counts)
+    prox = check.result()
+    losses = full["losses"]
+    log(f"lm train: steps={steps} first_loss={losses[0]:.6f} "
+        f"last10_loss={float(np.mean(losses[-10:])):.6f} "
+        f"ffn_zero={full['ffn_zero']} median_ms={full['median_ms']:.3f} "
+        f"stragglers={full['stragglers']} prox_launches={counts['sgl_prox']} "
+        f"first_step_prox={json.dumps(prox)}")
+    want = leaves * steps if dev.type == "cuda" else 0
+    if counts["sgl_prox"] != want:
+        raise AssertionError(f"lm train: {counts['sgl_prox']} prox launches, "
+                             f"want {want}")
+    # At lam 3e-4 the prox moves an entry by a few f32 ulps, so only its
+    # error of the leaf's scale is held here; the sparse run below holds
+    # every call against the prox's own change too.
+    if prox["calls"] != leaves or not prox["rel"] <= LM_PROX_REL:
+        raise AssertionError(f"lm train: prox kernel against its plain "
+                             f"version {prox} (limit {LM_PROX_REL})")
+    if not float(np.mean(losses[-10:])) < losses[0]:
+        raise AssertionError("lm train: the loss did not fall")
+
+    # restart from the step-50 checkpoint: steps 50-99 again
+    shutil.rmtree(ckpt / f"step_{steps:012d}")
+    resumed, counts = counted(
+        "lm resume", lambda: run_train(lm_train_args(
+            str(ckpt), steps, LM_TRAIN["sgl_lam"], dev)), LM_KERNELS,
+        LM_IDLE)
+    add(counts)
+    same = resumed["losses"] == losses[every:]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                    losses[every:]))
+    a, b = full["params"].state_dict(), resumed["params"].state_dict()
+    same_params = all(torch.equal(a[k], b[k]) for k in a)
+    log(f"lm resume: start={resumed['start']} bit_identical_losses={same} "
+        f"worst_rel={worst:.3e} bit_identical_params={same_params}")
+    if resumed["start"] != every or not (same and same_params):
+        raise AssertionError("lm resume: the restart did not repeat the "
+                             "uninterrupted run's steps 50-99")
+
+    # Every prox call of the sparse run against the plain version (the
+    # check's ops run on the card beside the step, so its step time is not
+    # the trainer's).
+    with _ProxCheck() as check:
+        sparse, counts = counted(
+            "lm train sparse", lambda: run_train(lm_train_args(
+                "", steps, LM_SPARSE_LAM, dev)), LM_KERNELS, LM_IDLE)
+    add(counts)
+    sparse_prox = check.result()
+    log(f"lm train sparse: sgl_lam={LM_SPARSE_LAM} ffn_zero="
+        f"{sparse['ffn_zero']} last10_loss="
+        f"{float(np.mean(sparse['losses'][-10:])):.6f} "
+        f"prox={json.dumps(sparse_prox)}")
+    if not (sparse_prox["calls"] == leaves * steps
+            and sparse_prox["rel"] <= LM_SPARSE_PROX_REL
+            and sparse_prox["of_change"] <= LM_PROX_OF_CHANGE
+            and sparse_prox["zeroed"] > 0):
+        raise AssertionError(f"lm train sparse: prox kernel against its "
+                             f"plain version {sparse_prox} (limits "
+                             f"{LM_SPARSE_PROX_REL}, {LM_PROX_OF_CHANGE} of "
+                             f"the change, some rows zeroed)")
+    if not (sparse["ffn_zero"] and sparse["ffn_zero"] > 0
+            and np.mean(sparse["losses"][-10:]) < sparse["losses"][0]):
+        raise AssertionError("lm train sparse: no zero neuron group, or the "
+                             "loss did not fall")
+
+    families = {}
+    rng = np.random.default_rng(SEED)
+    for fam in ("moe", "vlm", "ssm", "hybrid", "encdec"):
+        cfg = _lm_cfg(fam)
+        api = build(cfg)
+        params = api.init_params(dtype=torch.float32, device=dev)
+        cpu = api.init_params(dtype=torch.float32, device="cpu")
+        B, S = 2, 12
+        tokens = rng.integers(0, cfg.vocab, size=(B, S))
+        embeds = None
+        if cfg.family in ("vlm", "encdec"):
+            embeds = (rng.standard_normal((B, cfg.frontend_tokens,
+                                           cfg.d_model)) * 0.1).astype(
+                                               np.float32)
+        F = cfg.frontend_tokens if fam == "vlm" else 0
+
+        def on(x, d):
+            return None if x is None else torch.as_tensor(x, device=d)
+
+        with torch.no_grad():
+            full_l, _ = api.forward(params, on(tokens, dev), on(embeds, dev),
+                                    q_chunk=8)
+            cpu_l, _ = api.forward(cpu, on(tokens, "cpu"), on(embeds, "cpu"),
+                                   q_chunk=8)
+            prompt_l, _ = api.forward(params, on(tokens[:, :-1], dev),
+                                      on(embeds, dev), q_chunk=8)
+        last, cache = api.prefill(params, on(tokens[:, :-1], dev),
+                                  on(embeds, dev), q_chunk=8,
+                                  cache_len=S + F + 4, dtype=torch.float32)
+        step, _ = api.decode_step(params, cache, on(tokens[:, -1], dev),
+                                  S - 1 + F)
+        rec = dict(
+            card_vs_cpu_rel=float((full_l.cpu() - cpu_l).abs().max()
+                                  / cpu_l.abs().max()),
+            prefill_vs_forward=float((last - prompt_l[:, -1]).abs().max()),
+            decode_vs_forward=float((step - full_l[:, -1]).abs().max()))
+        families[cfg.name] = rec
+        log(f"lm family {fam} ({cfg.name}): {json.dumps(rec)}")
+        if not (rec["card_vs_cpu_rel"] <= 1e-5
+                and rec["prefill_vs_forward"] <= 2e-4
+                and rec["decode_vs_forward"] <= 2e-3):
+            raise AssertionError(f"lm family {fam}: forward, prefill and "
+                                 f"decode disagree: {rec}")
+
+    solver, counts = counted(
+        "lm solver", lambda: train_main(list(LM_SOLVER) + ["--device",
+                                                          str(dev)]),
+        MESH_KERNELS, MESH_IDLE)
+    add(counts)
+    log(f"lm solver: {json.dumps(solver)} launches={json.dumps(counts)}")
+    if not solver["gap"] <= solver["tol"]:
+        raise AssertionError(f"lm solver: gap {solver['gap']} above tol")
+    # The same f32 solve with the plain backends on the card (the kernels
+    # against their plain versions on the path) and on the CPU (a gloo
+    # rank): each agrees with the kernels' (solves_agree).
+    plain = dict(lm_solver_plain(solver, dev), tol=solver["tol"])
+    log(f"lm solver plain backends: {json.dumps(plain)}")
+    dist.destroy_process_group()
+    cpu_solver = train_main(list(LM_SOLVER) + ["--device", "cpu"])
+    dist.destroy_process_group()
+    log(f"lm solver cpu: {json.dumps(cpu_solver)}")
+    if not solves_agree(solver, plain):
+        raise AssertionError("lm solver: the kernels' solve disagrees with "
+                             "the plain backends' on the card")
+    if not solves_agree(solver, cpu_solver):
+        raise AssertionError("lm solver: the card's solve disagrees with the "
+                             "CPU's")
+
+    record = dict(
+        serve=serve,
+        train=dict(steps=steps, batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"],
+                   lr=LM_TRAIN["lr"], sgl_lam=LM_TRAIN["sgl_lam"],
+                   sgl_tau=LM_TRAIN["sgl_tau"], first_loss=losses[0],
+                   last10_loss=float(np.mean(losses[-10:])),
+                   ffn_zero=full["ffn_zero"], median_ms=full["median_ms"],
+                   stragglers=full["stragglers"], n_params=full["n_params"],
+                   first_step_prox=prox),
+        resume=dict(start=resumed["start"], bit_identical=same,
+                    worst_rel=worst),
+        train_sparse=dict(sgl_lam=LM_SPARSE_LAM, ffn_zero=sparse["ffn_zero"],
+                          last10_loss=float(np.mean(sparse["losses"][-10:])),
+                          median_ms_checked=sparse["median_ms"],
+                          prox=sparse_prox),
+        families=families,
+        solver={k: solver[k] for k in ("gap", "tol", "fista_steps", "rounds",
+                                       "active", "screened", "seconds")},
+        solver_plain={k: plain[k] for k in ("gap", "fista_steps", "active",
+                                            "screened")},
+        solver_cpu={k: cpu_solver[k] for k in ("gap", "fista_steps",
+                                               "active", "screened")},
+        launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches, record
+
+
 def main() -> int:
     import torch
 
@@ -1886,7 +2414,9 @@ def main() -> int:
     counts, chaos = run_chaos()
     add(counts)
     phase_line("chaos", chaos)
-    dist.destroy_process_group()
+    counts, lm = run_lm()
+    add(counts)
+    phase_line("lm", lm)
 
     kernels = [dict(records[k], launches=launches[k]) for k in
                ("corr", "dual_norm", "bcd_epoch", "screening_scores",

@@ -106,6 +106,10 @@ def _rebuild(tree, leaves: Iterator):
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            # numpy has no bfloat16: stored widened to float32 (exact) and
+            # narrowed back on a restore into a bfloat16 tensor
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
@@ -236,9 +240,9 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore(directory: str, tree_like: Any, step: Optional[int] = None,
             device=None) -> Any:
-    """Restore into the structure of ``tree_like`` (only its structure is
-    read).  Leaves come back as numpy arrays, or with ``device`` as tensors
-    on that device."""
+    """Restore into the structure of ``tree_like`` (only its structure, and
+    which leaves are bfloat16 tensors, is read).  Leaves come back as numpy
+    arrays, or with ``device`` as tensors on that device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -248,10 +252,12 @@ def restore(directory: str, tree_like: Any, step: Optional[int] = None,
         raise CheckpointCorrupt(path, "payload digest mismatch")
     data = np.load(os.path.join(path, "arrays.npz"))
     arrays: List = []
-    for key, _ in _leaves(tree_like):
+    for key, like in _leaves(tree_like):
         arr = data[key]
         if device is not None:
             arr = torch.as_tensor(arr).to(device)
+            if isinstance(like, torch.Tensor) and like.dtype == torch.bfloat16:
+                arr = arr.to(torch.bfloat16)
         arrays.append(arr)
     return _rebuild(tree_like, iter(arrays))
 

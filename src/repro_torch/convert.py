@@ -8,11 +8,20 @@ apart from ``_group_spectral_norms``); a binarized ``y`` in ``arrays`` gives
 the logistic problem.  :func:`loss_from_reference` and
 :func:`rule_from_reference` map a reference loss or rule (by name, or an
 object with the same ``name`` and fields) to the port's.
+
+LM parameters (:func:`lm_params_from_reference`,
+:func:`lm_params_to_reference`): the reference keeps a dict tree with its
+scanned layer stacks as one leading axis and projections as (in, out)
+matrices; the port keeps per-layer modules with ``nn.Linear`` (out, in)
+weights and depthwise ``nn.Conv1d`` (C, 1, W) convolutions.  The mapping
+walks the reference structure that :func:`repro_torch.models.build`'s
+``param_specs`` gives.  Caches have the reference's layout (stacked by
+layer) in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -24,9 +33,9 @@ from .kernels._util import resolve_device
 from .losses import Loss, get_loss
 from .rules import ScreeningRule, get_rule
 
-__all__ = ["beta_from_reference", "loss_from_reference",
-           "path_result_to_numpy", "problem_from_reference",
-           "rule_from_reference"]
+__all__ = ["beta_from_reference", "lm_params_from_reference", "lm_params_to_reference",
+           "loss_from_reference", "path_result_to_numpy",
+           "problem_from_reference", "rule_from_reference"]
 
 _FLOAT_FIELDS = ("X", "y", "w", "Lg", "Xnorm_col", "Xnorm_grp")
 
@@ -77,3 +86,126 @@ def rule_from_reference(rule, **fields) -> ScreeningRule:
         fields = {**dataclasses.asdict(rule), **fields}
     port = get_rule(name)
     return dataclasses.replace(port, **fields) if fields else port
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and caches
+# ---------------------------------------------------------------------------
+
+# Reference leaves that are projections x @ W with W (in, out): the port's
+# nn.Linear weight is W^T (an MoE expert stack (E, in, out) -> (E, out, in)).
+_LINEAR = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3", "in_proj",
+                     "out_proj", "proj_x", "proj_gate", "w_a", "w_x",
+                     "proj_out", "unembed"})
+_BIAS = {"bq": "wq", "bk": "wk", "bv": "wv"}
+_STACKS = {"layers": "n_layers", "enc_layers": "n_enc_layers",
+           "dec_layers": "n_layers"}
+
+
+def _port_leaf(keys: Tuple[str, ...]) -> Tuple[str, str]:
+    """(port state-dict name, transform) of the reference leaf at ``keys``
+    (layer indices as digits): transform "T" swaps the last two axes,
+    "conv" maps (W, C) to (C, 1, W), "" keeps the array."""
+    *parent, leaf = keys
+    if leaf in _BIAS:
+        return ".".join(parent + [_BIAS[leaf], "bias"]), ""
+    if leaf == "conv_w":
+        return ".".join(parent + ["conv", "weight"]), "conv"
+    if leaf == "conv_b":
+        return ".".join(parent + ["conv", "bias"]), ""
+    if leaf in _LINEAR:
+        if parent and parent[-1] == "moe":
+            return ".".join(keys), "T"
+        return ".".join(list(keys) + ["weight"]), "T"
+    return ".".join(keys), ""
+
+
+def _spec_leaves(tree, path=()) -> Iterator[Tuple[str, ...]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _spec_leaves(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _spec_leaves(v, path + (str(i),))
+    else:
+        yield path
+
+
+def _reference_leaves(cfg) -> Iterator[Tuple[Tuple[str, ...], int]]:
+    """(reference path, layer count of its stack or 0) of every leaf of the
+    reference parameter tree of ``cfg``."""
+    from .models import build
+
+    for path in _spec_leaves(build(cfg).param_specs()):
+        stacked = (path[0] in _STACKS and len(path) > 1
+                   and not path[1].isdigit())
+        yield path, getattr(cfg, _STACKS[path[0]]) if stacked else 0
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def _to_port(a: np.ndarray, how: str) -> np.ndarray:
+    if how == "T":
+        return np.swapaxes(a, -1, -2)
+    if how == "conv":
+        return a.T[:, None, :]
+    return a
+
+
+def _to_reference(a: np.ndarray, how: str) -> np.ndarray:
+    if how == "T":
+        return np.swapaxes(a, -1, -2)
+    if how == "conv":
+        return a[:, 0, :].T
+    return a
+
+
+def lm_params_from_reference(cfg, tree) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree of ``cfg`` (numpy-convertible leaves)
+    as the port model's state dict, CPU tensors of the leaves' dtypes
+    (``model.load_state_dict(...)``)."""
+    out = {}
+    for path, n_stack in _reference_leaves(cfg):
+        arr = np.asarray(_get(tree, path))
+        if n_stack:
+            for i in range(n_stack):
+                name, how = _port_leaf((path[0], str(i)) + path[1:])
+                out[name] = torch.tensor(
+                    np.ascontiguousarray(_to_port(arr[i], how)))
+        else:
+            name, how = _port_leaf(path)
+            out[name] = torch.tensor(
+                np.ascontiguousarray(_to_port(arr, how)))
+    return out
+
+
+def lm_params_to_reference(cfg, state_dict) -> dict:
+    """The port's state dict (or model) of ``cfg`` as the reference's
+    parameter tree of numpy arrays (stacked layers, (in, out) matrices)."""
+    if isinstance(state_dict, torch.nn.Module):
+        state_dict = state_dict.state_dict()
+    host = lambda t: t.detach().cpu().float().numpy() \
+        if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+    tree: dict = {}
+    for path, n_stack in _reference_leaves(cfg):
+        if n_stack:
+            arr = np.stack([_to_reference(host(state_dict[name]), how)
+                            for name, how in (
+                                _port_leaf((path[0], str(i)) + path[1:])
+                                for i in range(n_stack))])
+        else:
+            name, how = _port_leaf(path)
+            arr = _to_reference(host(state_dict[name]), how)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    if "layers" in tree and any(k.isdigit() for k in tree["layers"]):
+        tree["layers"] = [tree["layers"][str(i)]
+                          for i in range(len(tree["layers"]))]
+    return tree
+

@@ -125,10 +125,14 @@ def make_problem(X_flat, y, group_sizes, tau: float, w=None,
     ``group_sizes``: ints summing to p (contiguous groups).  ``w``: group
     weights, default sqrt(n_g) (paper Section 7.1).  ``device``: where the
     problem lives — the card unless the caller names another (with no GPU
-    and no ``device``, this raises).
+    and no ``device``, this raises).  The problem takes the design's dtype
+    where it is float32, as the reference keeps it (the mesh strategy's f32
+    program), and float64 otherwise.
     """
     dev = resolve_device(device)
-    Xf = _numpy(X_flat).astype(np.float64, copy=False)
+    Xf = _numpy(X_flat)
+    dtype = torch.float32 if Xf.dtype == np.float32 else DTYPE
+    Xf = Xf.astype(np.float64, copy=False)
     sizes = [int(s) for s in group_sizes]
     n, p = Xf.shape
     if sum(sizes) != p:
@@ -148,12 +152,12 @@ def make_problem(X_flat, y, group_sizes, tau: float, w=None,
             off += s
     if w is None:
         w = np.sqrt(np.asarray(sizes, np.float64))
-    X_t = torch.as_tensor(np.ascontiguousarray(Xg), dtype=DTYPE).to(dev)
+    X_t = torch.as_tensor(np.ascontiguousarray(Xg), dtype=dtype).to(dev)
     Lg = _group_spectral_norms(X_t)
     return SGLProblem(
         X=X_t,
-        y=torch.as_tensor(_numpy(y), dtype=DTYPE).to(dev),
-        w=torch.as_tensor(_numpy(w), dtype=DTYPE).to(dev),
+        y=torch.as_tensor(_numpy(y), dtype=dtype).to(dev),
+        w=torch.as_tensor(_numpy(w), dtype=dtype).to(dev),
         tau=float(tau),
         feat_mask=torch.as_tensor(mask).to(dev),
         Lg=Lg,

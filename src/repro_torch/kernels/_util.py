@@ -152,8 +152,8 @@ def reset_launch_counts() -> None:
 def check_operand(name: str, t: torch.Tensor, shape: Tuple[int, ...],
                   dtype: torch.dtype = torch.float64) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
-    ``dtype`` — float64 for every kernel but ``sgl_prox``, which also takes
-    float32."""
+    ``dtype`` — float64 for every kernel but ``sgl_prox`` and the Omega^D
+    entry of ``dual_norm``, which also take float32."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)!r}")
     if t.device.type != "cuda":

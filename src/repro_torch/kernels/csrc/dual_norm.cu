@@ -46,6 +46,12 @@
 // atomicInc returns to 0 at the launch's last ticket, so no launch needs a
 // memset; launches on the card must therefore not overlap (the port issues
 // them on one stream).
+//
+// The Omega^D kernel is templated on float and double, the operands' type:
+// an f32 program (the mesh strategy's on f32 data) computes in float, as
+// its plain version does.  tau arrives in double and is rounded to T once,
+// with 1 - tau, as PyTorch rounds a Python scalar against a float tensor.
+// The Lambda kernel has no f32 caller and is compiled for double only.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -60,44 +66,47 @@ constexpr int kWarps = kBlock / 32;
 __device__ unsigned int g_tickets = 0;
 
 // max(a, b) that returns NaN if either is NaN, as torch.max / amax.
-__device__ __forceinline__ double nanmax(double a, double b) {
+template <typename T>
+__device__ __forceinline__ T nanmax(T a, T b) {
   return (a > b || a != a) ? a : b;
 }
 
 // Lambda(x, a, r) of the group whose |x_j| lane l (< width) holds (0 on pad
-// lanes); every lane of the group returns the same bits.
-__device__ __forceinline__ double group_lambda(double ax, double a, double r,
-                                               int width) {
+// lanes); every lane of the group returns the same bits.  Every literal is
+// a T, so a float group computes in float throughout.
+template <typename T>
+__device__ __forceinline__ T group_lambda(T ax, T a, T r, int width) {
   const int lane = threadIdx.x & 31;
   const int l = lane & (width - 1);
   const unsigned group = width == 32 ? kFull
                                      : ((1u << width) - 1u) << (lane - l);
+  const T zero(0), one(1);
 
-  double linf = ax;
+  T linf = ax;
   for (int off = width / 2; off > 0; off >>= 1)
     linf = nanmax(linf, __shfl_xor_sync(kFull, linf, off, width));
-  const double s = linf > 0.0 ? linf : 1.0;
-  const double xn = ax / s;
+  const T s = linf > zero ? linf : one;
+  const T xn = ax / s;
   const bool bad = (__ballot_sync(kFull, xn != xn) & group) != 0u;
 
   // Bitonic sort, descending: lane l keeps the larger of the pair when its
   // bit j agrees with its bit k (its block of 2k runs descending).
-  double v = xn;
+  T v = xn;
   for (int k = 2; k <= width; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      const double o = __shfl_xor_sync(kFull, v, j, width);
+      const T o = __shfl_xor_sync(kFull, v, j, width);
       v = (((l & j) == 0) == ((l & k) == 0)) ? fmax(v, o) : fmin(v, o);
     }
   }
 
   // Inclusive prefix sums over the sorted positions.
-  const double y = 1.0 - v;
-  double S = v, S2 = v * v, D1 = y, D2 = y * y;
+  const T y = one - v;
+  T S = v, S2 = v * v, D1 = y, D2 = y * y;
   for (int off = 1; off < width; off <<= 1) {
-    const double tS = __shfl_up_sync(kFull, S, off, width);
-    const double tS2 = __shfl_up_sync(kFull, S2, off, width);
-    const double tD1 = __shfl_up_sync(kFull, D1, off, width);
-    const double tD2 = __shfl_up_sync(kFull, D2, off, width);
+    const T tS = __shfl_up_sync(kFull, S, off, width);
+    const T tS2 = __shfl_up_sync(kFull, S2, off, width);
+    const T tD1 = __shfl_up_sync(kFull, D1, off, width);
+    const T tD2 = __shfl_up_sync(kFull, D2, off, width);
     if (l >= off) {
       S += tS;
       S2 += tS2;
@@ -106,30 +115,30 @@ __device__ __forceinline__ double group_lambda(double ax, double a, double r,
     }
   }
 
-  const double safe_a = a > 0.0 ? a : 1.0;
-  const double safe_r = r > 0.0 ? r : 1.0;
-  const double k = static_cast<double>(l + 1);
-  const double Vk = fmax(D2 - D1 * D1 / k, 0.0);
-  const double Bnum = fmax(k * y * y - 2.0 * y * D1 + D2, 0.0);
-  const bool pos = v > 0.0;
-  const double safe = pos ? v : 1.0;
-  const double Bk = pos ? Bnum / (safe * safe) : INFINITY;
-  const double ratio = safe_r / safe_a;
+  const T safe_a = a > zero ? a : one;
+  const T safe_r = r > zero ? r : one;
+  const T k = static_cast<T>(l + 1);
+  const T Vk = fmax(D2 - D1 * D1 / k, zero);
+  const T Bnum = fmax(k * y * y - T(2) * y * D1 + D2, zero);
+  const bool pos = v > zero;
+  const T safe = pos ? v : one;
+  const T Bk = pos ? Bnum / (safe * safe) : T(INFINITY);
+  const T ratio = safe_r / safe_a;
   const unsigned pass = __ballot_sync(kFull, pos && Bk <= ratio * ratio);
   const int j0 = max(__popc(pass & group), 1);
-  const double Sj = __shfl_sync(kFull, S, j0 - 1, width);
-  const double S2j = __shfl_sync(kFull, S2, j0 - 1, width);
-  const double Vj = __shfl_sync(kFull, Vk, j0 - 1, width);
-  const double total2 = __shfl_sync(kFull, S2, width - 1, width);
-  const double disc =
-      fmax(safe_r * safe_r * S2j - safe_a * safe_a * j0 * Vj, 0.0);
+  const T Sj = __shfl_sync(kFull, S, j0 - 1, width);
+  const T S2j = __shfl_sync(kFull, S2, j0 - 1, width);
+  const T Vj = __shfl_sync(kFull, Vk, j0 - 1, width);
+  const T total2 = __shfl_sync(kFull, S2, width - 1, width);
+  const T disc = fmax(safe_r * safe_r * S2j
+                      - safe_a * safe_a * static_cast<T>(j0) * Vj, zero);
 
-  double nu = bad ? NAN : S2j / (safe_a * Sj + sqrt(disc)) * s;
-  const double l2 = bad ? NAN : s * sqrt(total2);
-  if (r == 0.0) nu = linf / safe_a;
-  if (a == 0.0) nu = l2 / safe_r;
-  if (a == 0.0 && r == 0.0) nu = INFINITY;
-  if (linf == 0.0) nu = 0.0;
+  T nu = bad ? T(NAN) : S2j / (safe_a * Sj + sqrt(disc)) * s;
+  const T l2 = bad ? T(NAN) : s * sqrt(total2);
+  if (r == zero) nu = linf / safe_a;
+  if (a == zero) nu = l2 / safe_r;
+  if (a == zero && r == zero) nu = T(INFINITY);
+  if (linf == zero) nu = zero;
   return nu;
 }
 
@@ -150,42 +159,42 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 // corr (B * Gb, ng), w (Gb,), mask (Gb,) or null -> terms (B * Gb,) and
-// dmax (B,); partial holds gridDim.x * B doubles.
+// dmax (B,); partial holds gridDim.x * B elements.
+template <typename T>
 __global__ void __launch_bounds__(kBlock)
-    sgl_dual_norm_kernel(const double* __restrict__ corr,
-                         const double* __restrict__ w,
+    sgl_dual_norm_kernel(const T* __restrict__ corr, const T* __restrict__ w,
                          const unsigned char* __restrict__ mask, double tau,
-                         double* __restrict__ terms, double* __restrict__ dmax,
-                         double* __restrict__ partial, long Gb, int ng,
+                         T* __restrict__ terms, T* __restrict__ dmax,
+                         T* __restrict__ partial, long Gb, int ng,
                          int width) {
   const int per_block = kBlock / width;
   const long g = static_cast<long>(blockIdx.x) * per_block + threadIdx.x / width;
   const int j = threadIdx.x & (width - 1);
   const long row = static_cast<long>(blockIdx.y) * Gb + g;
   const bool live = g < Gb;
-  const double ax = (live && j < ng) ? fabs(corr[row * ng + j]) : 0.0;
-  const double wg = live ? w[g] : 1.0;
-  const double omt = 1.0 - tau;
-  const double denom = tau + omt * wg;
-  const double eps = denom > 0.0 ? omt * wg / denom : 0.0;
-  const double nu = group_lambda(ax, 1.0 - eps, eps, width);
-  const double term = nu / denom;
+  const T ax = (live && j < ng) ? fabs(corr[row * ng + j]) : T(0);
+  const T wg = live ? w[g] : T(1);
+  const T omt = static_cast<T>(1.0 - tau);
+  const T denom = static_cast<T>(tau) + omt * wg;
+  const T eps = denom > T(0) ? omt * wg / denom : T(0);
+  const T nu = group_lambda(ax, T(1) - eps, eps, width);
+  const T term = nu / denom;
 
-  double v = -INFINITY;
+  T v = T(-INFINITY);
   if (live && j == 0) {
     terms[row] = term;
-    v = (mask == nullptr || mask[g]) ? term : 0.0;
+    v = (mask == nullptr || mask[g]) ? term : T(0);
   }
   for (int off = 16; off > 0; off >>= 1)
     v = nanmax(v, __shfl_xor_sync(kFull, v, off));
-  __shared__ double warp_max[kWarps];
+  __shared__ T warp_max[kWarps];
   __shared__ bool last;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) warp_max[warp] = v;
   __syncthreads();
   const unsigned blocks = gridDim.x * gridDim.y;
   if (threadIdx.x == 0) {
-    double m = warp_max[0];
+    T m = warp_max[0];
     for (int i = 1; i < kWarps; ++i) m = nanmax(m, warp_max[i]);
     partial[blockIdx.y * gridDim.x + blockIdx.x] = m;
     __threadfence();
@@ -195,13 +204,24 @@ __global__ void __launch_bounds__(kBlock)
   if (!last) return;
   __threadfence();
   for (unsigned b = warp; b < gridDim.y; b += kWarps) {
-    double m = -INFINITY;
+    T m = T(-INFINITY);
     for (unsigned i = lane; i < gridDim.x; i += 32)
       m = nanmax(m, __ldcg(partial + b * gridDim.x + i));
     for (int off = 16; off > 0; off >>= 1)
       m = nanmax(m, __shfl_xor_sync(kFull, m, off));
     if (lane == 0) dmax[b] = m;
   }
+}
+
+template <typename T>
+int launch_omega(const void* corr, const void* w, const void* mask,
+                 double tau, void* terms, void* dmax, void* partial, long Gb,
+                 int ng, int width, int blocks, int B, cudaStream_t stream) {
+  sgl_dual_norm_kernel<T><<<dim3(blocks, B), kBlock, 0, stream>>>(
+      static_cast<const T*>(corr), static_cast<const T*>(w),
+      static_cast<const unsigned char*>(mask), tau, static_cast<T*>(terms),
+      static_cast<T*>(dmax), static_cast<T*>(partial), Gb, ng, width);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -215,32 +235,37 @@ extern "C" int dual_norm_launch(const void* x, const void* alpha, const void* R,
   return static_cast<int>(cudaGetLastError());
 }
 
+// is_f64: the operands are double (1) or float (0).
 extern "C" int sgl_dual_norm_launch(const void* corr, const void* w,
                                     const void* mask, double tau, void* terms,
                                     void* dmax, void* partial, long Gb, int ng,
-                                    int width, int blocks, int B,
+                                    int width, int blocks, int B, int is_f64,
                                     void* stream) {
-  sgl_dual_norm_kernel<<<dim3(blocks, B), kBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(corr), static_cast<const double*>(w),
-      static_cast<const unsigned char*>(mask), tau,
-      static_cast<double*>(terms), static_cast<double*>(dmax),
-      static_cast<double*>(partial), Gb, ng, width);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_omega<double>(corr, w, mask, tau, terms, dmax,
+                                       partial, Gb, ng, width, blocks, B, st)
+                : launch_omega<float>(corr, w, mask, tau, terms, dmax,
+                                      partial, Gb, ng, width, blocks, B, st);
 }
 
 // The static audit's queries (launch_query.cuh); variant 0 is the Lambda
-// kernel (dual_norm_launch), 1 the Omega^D kernel (sgl_dual_norm_launch).
+// kernel (dual_norm_launch), 1 and 2 the Omega^D kernel
+// (sgl_dual_norm_launch) in double and in float.
 extern "C" int dual_norm_func_attributes(int variant, int* out) {
-  if (variant == 0) return write_func_attributes(dual_norm_kernel, out);
-  if (variant == 1) return write_func_attributes(sgl_dual_norm_kernel, out);
+  switch (variant) {
+    case 0: return write_func_attributes(dual_norm_kernel, out);
+    case 1: return write_func_attributes(sgl_dual_norm_kernel<double>, out);
+    case 2: return write_func_attributes(sgl_dual_norm_kernel<float>, out);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int dual_norm_max_active_blocks(int variant, int block, int smem) {
-  if (variant == 0) return max_active_blocks(dual_norm_kernel, block, smem);
-  if (variant == 1)
-    return max_active_blocks(sgl_dual_norm_kernel, block, smem);
+  switch (variant) {
+    case 0: return max_active_blocks(dual_norm_kernel, block, smem);
+    case 1: return max_active_blocks(sgl_dual_norm_kernel<double>, block, smem);
+    case 2: return max_active_blocks(sgl_dual_norm_kernel<float>, block, smem);
+  }
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 

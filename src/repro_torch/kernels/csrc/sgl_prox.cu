@@ -6,10 +6,11 @@
 // B lambdas times G groups, step_r = lam_b[b] / L (L a scalar or one per
 // lambda) and w_r = w[g], formed here, so the batched wrapper copies nothing.
 //
-// Replaces: repro/kernels/sgl_prox.py::sgl_prox_pallas (_sgl_prox_kernel),
-// the prox step of the kernel-timing harness and of ops.sgl_prox_batched (no
-// solver path of either package calls it; the BCD kernels do their prox
-// inline).
+// Replaces: repro/kernels/sgl_prox.py::sgl_prox_pallas (_sgl_prox_kernel).
+// Callers: the kernel-timing harness, the mesh strategy's FISTA steps
+// (ops.sgl_prox, ops.sgl_prox_batched) and the LM trainer's SGL regularizer
+// (train/sgl_regularizer.py: one launch per FFN w1/w3 leaf, its neurons as
+// rows); the BCD kernels do their prox inline.
 //
 // Bound on this card: bytes.  Each entry is read once and written once with
 // ~6 operations between, far below the card's operations-per-byte balance;

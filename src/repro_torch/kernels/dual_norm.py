@@ -14,8 +14,10 @@ scans by shuffles (see the source).
   tau + (1 - tau) w_g in the kernel, divides, and reduces the (masked)
   maximum per lambda segment: a round's whole Omega^D in one launch.
 
-Both check their operands, launch on PyTorch's current stream and count the
-launch on the one counter ``kernels.dual_norm_launches``.
+The Omega^D entry takes float64 or float32 operands (all of one type; its
+kernel is compiled for both), the Lambda entry float64.  Both check their
+operands, launch on PyTorch's current stream and count the launch on the
+one counter ``kernels.dual_norm_launches``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ __all__ = ["DualNormGeometry", "LAUNCHES", "dual_norm_cuda",
 LAUNCHES = LaunchCounter("dual_norm")
 BLOCK = 256
 MAX_NG = 32
+DTYPES = (torch.float32, torch.float64)
 
 
 def group_width(ng: int) -> int:
@@ -99,13 +102,16 @@ def sgl_dual_norm_geometry(Gb: int, ng: int, B: int) -> DualNormGeometry:
                             True)
 
 
-def _spec(geo: DualNormGeometry) -> LaunchSpec:
+def _spec(geo: DualNormGeometry, itemsize: int = 8) -> LaunchSpec:
+    """Variant 0: the Lambda kernel; 1 and 2: the Omega^D kernel compiled
+    for double and for float (``itemsize`` 8 or 4)."""
     B = geo.grid[1]
     outputs = ((Output("terms", B * geo.G),
                 Output("partial", geo.grid[0] * B))
                if geo.omega else (Output("out", geo.G),))
+    variant = (1 if itemsize == 8 else 2) if geo.omega else 0
     return LaunchSpec("dual_norm", (*geo.grid, 1), (BLOCK, 1, 1), 0,
-                      variant=int(geo.omega), outputs=outputs, geometry=geo)
+                      variant=variant, outputs=outputs, geometry=geo)
 
 
 @functools.lru_cache(maxsize=256)
@@ -114,9 +120,11 @@ def dual_norm_launch_spec(G: int, ng: int) -> LaunchSpec:
 
 
 @functools.lru_cache(maxsize=256)
-def sgl_dual_norm_launch_spec(Gb: int, ng: int, B: int) -> LaunchSpec:
-    """Grid (blocks per lambda segment, B): no block straddles a segment."""
-    return _spec(sgl_dual_norm_geometry(Gb, ng, B))
+def sgl_dual_norm_launch_spec(Gb: int, ng: int, B: int,
+                              itemsize: int = 8) -> LaunchSpec:
+    """Grid (blocks per lambda segment, B): no block straddles a segment.
+    ``itemsize``: 8 for float64 operands, 4 for float32."""
+    return _spec(sgl_dual_norm_geometry(Gb, ng, B), itemsize)
 
 
 def dual_norm_work(groups: int, ng: int) -> Tuple[float, float]:
@@ -138,7 +146,7 @@ def _lib() -> ctypes.CDLL:
     lib.dual_norm_launch.argtypes = [vp, vp, vp, vp, cl, ci, ci, ci, vp]
     lib.dual_norm_launch.restype = ci
     lib.sgl_dual_norm_launch.argtypes = [vp, vp, vp, cd, vp, vp, vp, cl, ci,
-                                         ci, ci, ci, vp]
+                                         ci, ci, ci, ci, vp]
     lib.sgl_dual_norm_launch.restype = ci
     lib.dual_norm_error_string.argtypes = [ci]
     lib.dual_norm_error_string.restype = ctypes.c_char_p
@@ -151,9 +159,15 @@ def _check_width(ng: int) -> None:
                          f"{MAX_NG} features, got {ng}")
 
 
+def _check_dtype(t: torch.Tensor) -> None:
+    if t.dtype not in DTYPES:
+        raise TypeError(f"the Omega^D kernel takes float32 or float64, got "
+                        f"{t.dtype}")
+
+
 def dual_norm_cuda(x: torch.Tensor, alpha: torch.Tensor,
                    R: torch.Tensor) -> torch.Tensor:
-    """x (G, ng), alpha and R (G,) -> Lambda per group (G,)."""
+    """x (G, ng), alpha and R (G,), float64 -> Lambda per group (G,)."""
     if x.dim() != 2:
         raise ValueError(f"expected x (G, ng), got {tuple(x.shape)}")
     G, ng = x.shape
@@ -180,7 +194,8 @@ def sgl_dual_norm_cuda(corr: torch.Tensor, w: torch.Tensor, tau: float,
     """Omega^D over B lambda segments of Gb groups in one launch.
 
     corr (B * Gb, ng) grouped correlations, segment b in rows b * Gb ...;
-    w (Gb,) the group weights every segment shares; mask (Gb,) bool or None.
+    w (Gb,) the group weights every segment shares, of corr's dtype (float32
+    or float64); mask (Gb,) bool or None.
     Returns the terms ||corr_g||_{eps_g} / (tau + (1 - tau) w_g), (B * Gb,),
     and per segment the maximum of the terms whose group is set in ``mask``
     (0 for the others; all groups without a mask), (B,); a NaN term
@@ -194,11 +209,13 @@ def sgl_dual_norm_cuda(corr: torch.Tensor, w: torch.Tensor, tau: float,
     Gb = rows // B
     if Gb == 0:
         raise ValueError("the dual norm of no groups is undefined")
-    check_operand("corr", corr, (rows, ng))
-    check_operand("w", w, (Gb,))
+    _check_dtype(corr)
+    check_operand("corr", corr, (rows, ng), corr.dtype)
+    check_operand("w", w, (Gb,), corr.dtype)
     if mask is not None:
         check_operand("mask", mask, (Gb,), torch.bool)
-    spec = sgl_dual_norm_launch_spec(Gb, ng, B)
+    item = corr.element_size()
+    spec = sgl_dual_norm_launch_spec(Gb, ng, B, item)
     blocks = spec.grid[0]
     terms = torch.empty((rows,), dtype=corr.dtype, device=corr.device)
     scratch = torch.empty((B + blocks * B,), dtype=corr.dtype,
@@ -208,8 +225,9 @@ def sgl_dual_norm_cuda(corr: torch.Tensor, w: torch.Tensor, tau: float,
     code = lib.sgl_dual_norm_launch(
         corr.data_ptr(), w.data_ptr(),
         None if mask is None else mask.data_ptr(), float(tau),
-        terms.data_ptr(), dmax.data_ptr(), dmax.data_ptr() + 8 * B, Gb, ng,
-        spec.geometry.width, blocks, B, stream_handle())
+        terms.data_ptr(), dmax.data_ptr(), dmax.data_ptr() + item * B, Gb,
+        ng, spec.geometry.width, blocks, B, int(corr.dtype == torch.float64),
+        stream_handle())
     raise_on_launch_error(lib, "dual_norm", code)
     LAUNCHES.add()
     return terms, dmax

@@ -149,7 +149,8 @@ def sgl_dual_norm_terms_fused(corr_grouped: torch.Tensor, tau,
     (B * Gb, ng), w (Gb,), mask (Gb,) bool or None.  Returns the per-group
     terms (B * Gb,) (``sgl.sgl_dual_norm_terms``) and per segment the
     maximum of those whose group is set in ``mask`` (0 for the others),
-    (B,)."""
+    (B,).  Both run in the inputs' dtype, float64 or float32 (the mesh
+    strategy's f32 program)."""
     if _on_cpu(corr_grouped):
         return ref.sgl_dual_norm_ref(corr_grouped, tau, w, mask, B)
     return sgl_dual_norm_cuda(corr_grouped, w, float(tau), mask, B)
@@ -244,7 +245,9 @@ def audit_scope():
 # width chip_smoke.py runs — the climate design (p = 73,584 = 10,512 groups
 # of 7, n = 814) and its 16,384-group buffer, the synthetic path's buffer
 # (128 groups of 10, n = 100) and the elastic design's (n = 10,100, where
-# the BCD kernel runs without its ring).
+# the BCD kernel runs without its ring); the LM trainer's prox on the demo
+# model's FFN leaves ((F, D) = (128, 64) f32 rows, one launch a leaf); and
+# the Omega^D of launch.train --solver's f32 rounds (100 groups of 10).
 # ---------------------------------------------------------------------------
 
 _AUDITS = {
@@ -272,10 +275,13 @@ _AUDITS = {
     "dual_norm/climate": lambda: dual_norm_launch_spec(10_512, 7),
     "dual_norm/omega-climate-b8":
         lambda: sgl_dual_norm_launch_spec(16_384, 7, 8),
+    "dual_norm/omega-solver-f32":
+        lambda: sgl_dual_norm_launch_spec(100, 10, 1, 4),
     "sgl_prox/climate-f64": lambda: sgl_prox_launch_spec(10_512, 7, 8),
     "sgl_prox/climate-f32": lambda: sgl_prox_launch_spec(10_512, 7, 4),
     "sgl_prox/batched-b8-f64": lambda: sgl_prox_launch_spec(10_512, 7, 8, 8),
     "sgl_prox/batched-b8-f32": lambda: sgl_prox_launch_spec(10_512, 7, 4, 8),
+    "sgl_prox/lm-demo-f32": lambda: sgl_prox_launch_spec(128, 64, 4),
 }
 for _name, _builder in _AUDITS.items():
     register_kernel_audit(_name, _builder)

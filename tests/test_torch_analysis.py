@@ -70,7 +70,8 @@ def test_launch_pass_lists_every_audit_and_full_width():
                  "bcd_epoch/elastic", "dual_norm/climate",
                  "dual_norm/omega-climate-b8", "sgl_prox/climate-f64",
                  "sgl_prox/climate-f32", "sgl_prox/batched-b8-f64",
-                 "sgl_prox/batched-b8-f32", "bcd_epoch/bucket",
+                 "sgl_prox/batched-b8-f32", "sgl_prox/lm-demo-f32",
+                 "dual_norm/omega-solver-f32", "bcd_epoch/bucket",
                  "corr/default", "dual_norm/paper-ng8", "sgl_prox/paper-ng8"):
         assert name in ctx["kernels"], name
     assert ctx["smem_limit_bytes"] == 232_448 and not ctx["built_checked"]

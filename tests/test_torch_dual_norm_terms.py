@@ -26,6 +26,7 @@ from repro_torch.core import sgl as tsgl
 from repro_torch.core.solver import _dual_terms
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dual_norm import (
+    dual_norm_launch_spec,
     dual_norm_work,
     group_width,
     sgl_dual_norm_cuda,
@@ -138,6 +139,24 @@ def test_sgl_dual_norm_launch_spec_covers_every_group(Gb, ng, B):
     assert spec.block[0] % 32 == 0 and spec.grid[1] == B
     assert spec.grid[0] * per_block >= Gb
     assert (spec.grid[0] - 1) * per_block < Gb
+
+
+@pytest.mark.parametrize("itemsize,variant", [(8, 1), (4, 2)])
+def test_sgl_dual_norm_launch_spec_names_the_instance_of_its_dtype(
+        itemsize, variant):
+    """The Omega^D kernel's double instance is variant 1, its float one 2
+    (0: the Lambda kernel): the instance the audit queries is the one a
+    launch on operands of that size runs; the geometry is the same."""
+    spec = sgl_dual_norm_launch_spec(100, 10, 1, itemsize)
+    assert spec.variant == variant
+    assert spec.grid == sgl_dual_norm_launch_spec(100, 10, 1).grid
+    assert dual_norm_launch_spec(100, 10).variant == 0
+
+
+def test_omega_d_kernel_wrapper_takes_float32_or_float64_only():
+    half = torch.ones((6, 4), dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sgl_dual_norm_cuda(half, torch.ones(6, dtype=torch.float16), 0.3)
 
 
 def test_dual_norm_work_is_bound_by_bytes_at_the_climate_width():

@@ -7,7 +7,8 @@ tests/test_torch_gpu.py``.
 
 Tolerance: rtol 1e-12, atol 1e-12 in f64 — O(1) inputs, so only the
 different summation orders of the kernel and the plain version separate
-them (1e-5 for the prox kernel in f32, as the reference's kernel tests);
+them (1e-5 for the prox and dual-norm kernels in f32, as the reference's
+kernel tests);
 path masks are compared exactly.  Also here: the observability layer on
 the card (the timing harness, the obs gate with a CUDA smoke, traced
 against untraced bits), and the mesh strategy's steps on a world of one
@@ -202,6 +203,35 @@ def test_sgl_dual_norm_kernel_is_scale_invariant(hopper, scale):
                                rtol=1e-12, atol=0)
     np.testing.assert_allclose(dmax.cpu().numpy(), want_m.cpu().numpy(),
                                rtol=1e-12, atol=0)
+
+
+F32_TOL = dict(rtol=1e-5, atol=0)   # f32's, as the prox kernel's
+
+
+@pytest.mark.parametrize("ng", [1, 7, 10, 32])
+def test_sgl_dual_norm_kernel_in_f32_matches_plain(hopper, ng):
+    """The Omega^D kernel's float instance against the plain version in f32
+    on the same inputs (the f64 test groups narrowed: mixed scales, ties, a
+    zero group, a zero weight), over B = 4 segments with a mask, its maxima
+    equal to the maxima of its own terms."""
+    rng = np.random.default_rng(20 + ng)
+    Gb, B = 500, 4
+    corr = _groups(rng, B * Gb, ng, hopper).float()
+    w = rng.uniform(0.5, 3.0, Gb)
+    w[9] = 0.0
+    w = _t(w, hopper).float()
+    mask = torch.as_tensor(rng.random(Gb) > 0.5).to(hopper)
+    for tau in (0.0, 0.2, 1.0):
+        terms, dmax = sgl_dual_norm_cuda(corr, w, tau, mask, B)
+        want_t, want_m = ref.sgl_dual_norm_ref(corr, tau, w, mask, B)
+        assert terms.dtype == dmax.dtype == torch.float32
+        np.testing.assert_allclose(terms.cpu().numpy(),
+                                   want_t.cpu().numpy(), **F32_TOL)
+        np.testing.assert_allclose(dmax.cpu().numpy(), want_m.cpu().numpy(),
+                                   **F32_TOL)
+        kept = torch.where(mask, terms.reshape(B, Gb), torch.zeros(
+            (), dtype=terms.dtype, device=hopper))
+        assert torch.equal(dmax, kept.amax(dim=-1))
 
 
 def test_sgl_dual_norm_kernel_propagates_nan(hopper):
@@ -733,3 +763,138 @@ def test_analysis_gate_with_the_kernels(hopper):
     assert payload["ok"], [f for f in payload["findings"]
                            if f["severity"] == "error"]
     assert set(payload["passes"]["launch"]["built"]) == set(_audits())
+
+
+# ---------------------------------------------------------------------------
+# The LM stack: the SGL regularizer's prox through the kernel, one demo step
+# ---------------------------------------------------------------------------
+
+LM_LR = 1e-3
+LM_PROX_REL = 2.4e-7      # f32 kernel against its plain version
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lam", [3e-4, 120.0])
+def test_apply_prox_on_the_card_matches_plain(hopper, dtype, lam):
+    """``apply_prox`` on demo's four FFN leaves: one sgl_prox launch per
+    leaf, each leaf against ``sgl_prox_ref`` on the same (F, D) rows in
+    f32.  At the trainer's lam 3e-4, 2.4e-7 of the leaf's largest entry
+    (the kernel's f32 figure at the harness shape); at lam 120, which zeroes part of the rows and
+    leaves others just above their threshold (scale = 1 - t2 / ||z|| near
+    0 magnifies the norm's last-bit difference), rtol = atol = 1e-5, the
+    reference's kernel tests', with the zero rows equal.  A bf16 leaf:
+    within one bf16 rounding (2^-7 relative at most) of the plain result
+    rounded to bf16."""
+    from repro_torch.configs.base import DEMO
+    from repro_torch.models import build
+    from repro_torch.train.sgl_regularizer import (
+        SGLRegConfig, apply_prox, ffn_groups)
+
+    model = build(DEMO).init_params(dtype=dtype, device=hopper)
+    before = {k: v.detach().clone() for k, v in ffn_groups(model)}
+    cfg = SGLRegConfig(lam=lam, tau=0.3)
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    apply_prox(model, cfg, LM_LR)
+    torch.cuda.synchronize()
+    assert _util.launch_counts()["sgl_prox"] == 4
+    zero = 0
+    for name, leaf in ffn_groups(model):
+        rows = before[name].reshape(-1, DEMO.d_model).float()
+        G = rows.shape[0]
+        want = ref.sgl_prox_ref(
+            rows, torch.full((G,), LM_LR, device=hopper),
+            torch.full((G,), 8.0, device=hopper), cfg.tau, cfg.lam)
+        got = leaf.detach().reshape(G, -1)
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(),
+                                       want.to(torch.bfloat16).float(),
+                                       rtol=2.0 ** -7, atol=0.0)
+        elif lam < 1.0:
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= LM_PROX_REL, (name, err)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got.abs().sum(-1) == 0, want.abs().sum(-1) == 0)
+        zero += int((want.abs().sum(-1) == 0).sum())
+    assert (0 < zero < 4 * DEMO.d_ff) == (lam > 1.0)
+
+
+def test_mesh_f32_solve_on_the_card(hopper):
+    """The mesh strategy on an f32 problem (``launch.train --solver``'s):
+    its rounds' Omega^D through the dual-norm kernel's float instance, its
+    prox through the f32 sgl_prox kernel; the gap reaches a tol above the
+    f32 rounding of the gap (0.1 at ||y||^2 ~ 3e4), with the support of
+    the plain backends' solution, each one's screened groups zero in the
+    other's solution, the screened counts within one (the prox kernel's
+    last bits move the f32 gap by a few units of its rounding) and the
+    FISTA steps within a round (10 steps)."""
+    from repro_torch.data import make_synthetic
+    from repro_torch.launch.mesh import make_test_mesh
+
+    X, y, _, sizes = make_synthetic(n=25, p=80, n_groups=10,
+                                    dtype=np.float32)
+    prob = make_problem(X, y, sizes, tau=0.2, device=hopper)
+    L = float(torch.linalg.matrix_norm(torch.from_numpy(X), 2) ** 2)
+    mesh = make_test_mesh(hopper)
+    res = {}
+    for backend in ("cuda", "torch"):
+        cfg = SolverConfig(tol=0.1, max_epochs=5000, screen_backend=backend,
+                           solver_backend=backend)
+        session = SGLSession(prob, cfg, mesh=mesh, L=L, device=hopper)
+        _util.reset_launch_counts()
+        r = session.solve(session.lam_max / 20.0)
+        torch.cuda.synchronize()
+        res[backend] = (r, _util.launch_counts())
+    (r, c), (pr, pc) = res["cuda"], res["torch"]
+    assert r.gap <= 0.1 and pr.gap <= 0.1
+    assert r.beta.dtype == torch.float32
+    assert c["dual_norm"] > 0 and c["sgl_prox"] > 0
+    assert pc["dual_norm"] == pc["sgl_prox"] == 0
+    assert abs(r.n_epochs - pr.n_epochs) <= 10
+    support = torch.any(r.beta.abs() > 0, dim=1)
+    p_support = torch.any(pr.beta.abs() > 0, dim=1)
+    kept = torch.as_tensor(r.group_active, device=hopper)
+    p_kept = torch.as_tensor(pr.group_active, device=hopper)
+    assert torch.equal(support, p_support)
+    assert not (~kept & p_support).any() and not (~p_kept & support).any()
+    assert abs(int(kept.sum()) - int(p_kept.sum())) <= 1
+
+
+def test_demo_train_step_on_the_card_matches_the_cpu(hopper):
+    """One demo train step with SGL on, on the card and on the CPU from the
+    same parameters and batch: loss and grad_norm within 1e-5 relative, the
+    prox launched once per FFN leaf, and the parameters entry by entry in
+    units of lr (every entry within lr / 2, all but 2e-4 of them within
+    1e-3 lr: AdamW normalizes each gradient entry, so an entry whose
+    gradient sits near its eps = 1e-8 turns rounding into step; see
+    tests/torch_lm_common.py)."""
+    from repro_torch.configs.base import DEMO
+    from repro_torch.launch.train import copy_batch
+    from repro_torch.models import build
+    from repro_torch.train import make_train_step
+    from repro_torch.train.sgl_regularizer import SGLRegConfig
+
+    api = build(DEMO)
+    toks = copy_batch(0, 16, 64, DEMO.vocab)
+    out = {}
+    for dev in (hopper, torch.device("cpu")):
+        model = api.init_params(dtype=torch.float32, device=dev)
+        init_state, step = make_train_step(
+            api, lr=LM_LR, sgl_cfg=SGLRegConfig(lam=3e-4), q_chunk=64)
+        _util.reset_launch_counts()
+        model, _, metrics = step(model, init_state(model),
+                                 {"tokens": torch.as_tensor(toks,
+                                                            device=dev)})
+        out[dev.type] = ({k: v.detach().cpu() for k, v in
+                          model.state_dict().items()},
+                         {k: float(v) for k, v in metrics.items()},
+                         _util.launch_counts()["sgl_prox"])
+    (card, cm, cl), (cpu, pm, pl) = out["cuda"], out["cpu"]
+    assert (cl, pl) == (4, 0)
+    for key in ("loss", "grad_norm"):
+        assert abs(cm[key] - pm[key]) <= 1e-5 * abs(pm[key])
+    d = torch.cat([((card[k] - cpu[k]).abs() / LM_LR).reshape(-1)
+                   for k in cpu])
+    assert float(d.max()) <= 0.5
+    assert int((d > 1e-3).sum()) <= 2e-4 * d.numel()

@@ -22,7 +22,10 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "small_kernels_torch.py",
     ROOT / "tools" / "path_ab_torch.py",
     ROOT / "tools" / "mesh_step_cost_torch.py",
-    ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "tools" / "profile_lm_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py",
+    ROOT / "examples" / "train_lm_sgl_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -63,6 +66,11 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.analysis.entrypoints\n"
         "import repro_torch.analysis.__main__\n"
         "import repro_torch.launch.report, repro_torch.launch.reanalyze\n"
+        "import repro_torch.configs, repro_torch.configs.sgl_paper\n"
+        "import repro_torch.models, repro_torch.models.ssm\n"
+        "import repro_torch.models.rglru, repro_torch.models.encdec\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
+        "assert repro_torch.configs.get('sgl-paper').n_groups == 262_144\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -80,6 +88,8 @@ _LAUNCH_SITES = [PORT / "kernels" / f for f in
                   "_build.py")] + [
     PORT / "core" / "solver.py", PORT / "core" / "session.py",
     PORT / "distributed" / "solver_dist.py", PORT / "launch" / "mesh.py",
+    PORT / "launch" / "train.py", PORT / "train" / "sgl_regularizer.py",
+    PORT / "train" / "train_step.py",
     PORT / "obs" / "timing.py", PORT / "obs" / "check.py",
     ROOT / "chip_smoke.py"]
 
@@ -185,6 +195,42 @@ def test_elastic_without_device_raises_without_gpu():
     assert got.device.type == "cpu"
     assert elastic_objective(X, y, np.ones(6), 0.5, [1.0, 1.0], 0.1, 1.0,
                              sizes, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_without_device_raise_without_gpu():
+    _no_cuda()
+    from repro_torch.configs.base import DEMO
+    from repro_torch.models import build
+
+    api = build(DEMO)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_params()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_cache(2, 8)
+    # With an explicit CPU device the model is built there.
+    assert api.init_params(device="cpu").embed.device.type == "cpu"
+
+
+def test_launch_train_without_device_raises_without_gpu():
+    _no_cuda()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for extra in ([], ["--solver"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+             "1", *extra], env=env, capture_output=True, text=True,
+            timeout=120)
+        assert out.returncode != 0, out.stdout
+        assert "no CUDA device is available" in out.stderr
+
+
+def test_configs_registry_keeps_the_reference_messages():
+    from repro_torch.configs import ARCH_IDS, get, list_archs
+
+    assert list_archs() == ARCH_IDS == ["sgl-paper", "demo"]
+    with pytest.raises(KeyError, match="repro_torch.configs.base"):
+        get("llama3-405b")
+    with pytest.raises(KeyError, match="unknown arch 'gpt-5'"):
+        get("gpt-5")
 
 
 def _run_smoke(cwd: Path, script: Path):

@@ -66,6 +66,24 @@ def test_make_problem_matches_reference(pair):
                                    **RTOL)
 
 
+def test_make_problem_keeps_an_f32_design_as_the_reference_does():
+    """An f32 design gives an f32 problem in both packages (the mesh
+    strategy's f32 program); any other design an f64 one.  The f32 fields
+    agree to f32 roundoff (rtol 1e-5)."""
+    X, y, _, sizes = make_synthetic(n=25, p=80, n_groups=10, seed=0,
+                                    dtype=np.float32)
+    jp = j_make_problem(X, y, sizes, tau=0.2)
+    tp = tsgl.make_problem(X, y, sizes, tau=0.2, device="cpu")
+    for f in ("X", "y", "w", "Lg", "Xnorm_col", "Xnorm_grp"):
+        assert getattr(tp, f).dtype == torch.float32
+        assert np.asarray(getattr(jp, f)).dtype == np.float32
+        np.testing.assert_allclose(_np(getattr(tp, f)),
+                                   np.asarray(getattr(jp, f)), rtol=1e-5)
+    f64 = tsgl.make_problem(X.astype(np.float64), y, sizes, tau=0.2,
+                            device="cpu")
+    assert f64.X.dtype == f64.y.dtype == torch.float64
+
+
 def test_make_problem_unequal_groups_matches_reference():
     rng = np.random.default_rng(1)
     X, y = rng.standard_normal((20, 17)), rng.standard_normal(20)
