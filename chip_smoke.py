@@ -57,7 +57,17 @@ paths through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
   strategy on an f32 problem, its Omega^D on the dual-norm kernel's float
   instance), held against the same solve with the plain backends on the
   card and on the CPU: the same support, each one's screened groups zero
-  in the other's solution, the screened counts within one.
+  in the other's solution, the screened counts within one;
+* the dry run and its cost model (``repro_torch.launch.dryrun --all``, a
+  subprocess over a fake process group of 256 or 512 ranks on meta
+  tensors, 10 cells, rendered by ``repro_torch.launch.report`` into
+  ``build/dryrun/``), and beside it one rank's shard of the sgl-paper cell
+  on the 256-rank mesh on the card (16,384 rows by 16,384 groups of 8, the
+  design in f32 and bf16, the batched step at B = 256): each of the dry
+  run's four functions with the kernels against the plain backends, its
+  launches equal to the dry run's count, its time beside the dry run's
+  per-rank roofline terms on the one-rank NCCL mesh (whose all-reduces are
+  identities).
 
 dual_norm is held against its plain version through both entries (Lambda
 per group, and a round's whole Omega^D with its maximum per lambda, with and
@@ -171,6 +181,24 @@ LM_PROX_CHECK_LAM = 120.0
 # 100 groups, f32): its gap is rounded to multiples of ~2^-7 there, so tol
 # sits above that rounding.
 LM_SOLVER = ("--solver", "--tol", "0.1")
+# The dryrun phase: the dry run's 10 cells (sgl-paper's solve and demo's
+# four shapes, each on 1 pod and 2) in a subprocess, then one rank's shard
+# of the sgl-paper cell on the 256-rank mesh on the card: n = 16,384 rows,
+# 16,384 groups of 8, the batched step at B = 256.
+DRYRUN_CELLS = 10
+DRYRUN_SWEEP_S = 600      # the sweep's time limit
+DRYRUN_B = 256
+DRYRUN_KERNELS = {"fista": {"sgl_prox": 1}, "fista_bf16": {"sgl_prox": 1},
+                  f"fista_batch{DRYRUN_B}_bf16": {"sgl_prox": 1},
+                  "screen": {"dual_norm": 1}}
+# Kernels against the plain backends, f32: the products are the same cuBLAS
+# calls in both, so only the prox's and the dual norm's own roundings
+# differ: rtol = atol = 1e-5 on every float output (the reference's f32
+# kernel tolerance); a screening mask may flip only at a test that the
+# dual norm's last bits move across its threshold, at most
+# DRYRUN_MASK_FLIPS entries.
+DRYRUN_TOL = 1e-5
+DRYRUN_MASK_FLIPS = 4
 SAFETY_TOL = 1e-10
 LEAK = 1e-8               # |beta| a screened variable may have at SAFETY_TOL
 # A Theorem-1 test whose value lies this close (relative) to its threshold
@@ -236,7 +264,10 @@ def check_scores(label, Xt, center, tau, reps: int = 20):
     library_ms, bound_ms, bound_by)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.screening_scores import screening_scores_cuda
+    from repro_torch.kernels.screening_scores import (
+        scores_work,
+        screening_scores_cuda,
+    )
     from repro_torch.obs.timing import close_scores
 
     p, n = Xt.shape
@@ -253,7 +284,8 @@ def check_scores(label, Xt, center, tau, reps: int = 20):
         return c, s * s
 
     lib = cuda_ms(library, reps)
-    b_ms, b_by = bound_ms(8.0 * (p * n + n + 2 * p), 2.0 * p * n + 3.0 * p)
+    flops, nbytes = scores_work(p, n)
+    b_ms, b_by = bound_ms(nbytes, flops)
     log(f"kernel screening_scores ({label}): shape Xt ({p}, {n}) tau={tau} "
         f"max_abs_err={err:.3e} tol corr=2*n*u*(|Xt|@|theta|) "
         f"st2=2|corr|b+b^2+6u*st2+u ok={ok} "
@@ -280,6 +312,7 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
         bcd_epoch_geometry,
         bcd_epoch_launch_spec,
         bcd_epoch_max_active_clusters,
+        bcd_epoch_work,
     )
     from repro_torch.obs.timing import close_epochs
 
@@ -306,13 +339,12 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
     ms = graph_ms(kernel, reps)
     loop = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(plain, 1)
-    # Work this input needs at least: the B * E * (live groups) gradient
-    # reductions (2 n ng flops each); bytes: each input read once, each
+    # Work this input needs at least (the kernel module's work model): the
+    # B * E * (live groups) gradient reductions; each input read once, each
     # output written once.
     live = int((Lg > 0).sum())
-    nbytes = 8.0 * (Gb * n * ng + 2 * Gb + 2 * B * Gb * ng + B + 2 * B * n
-                    + B * Gb * ng + (n if y is not None else 0))
-    b_ms, b_by = bound_ms(nbytes, 2.0 * B * E * live * n * ng)
+    flops, nbytes = bcd_epoch_work(B, Gb, n, ng, E, loss, live)
+    b_ms, b_by = bound_ms(nbytes, flops)
     geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
     spec = bcd_epoch_launch_spec(B, Gb, n, ng, loss)[0]
     log(f"kernel {name} ({label}): B={B} Gb={Gb} live={live} n={n} ng={ng} "
@@ -347,6 +379,7 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.screening_scores import (
         corr_geometry,
+        corr_work,
         screening_corr_cuda,
     )
     from repro_torch.obs.timing import close_dot
@@ -379,7 +412,8 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
         loop = cuda_ms(lambda: screening_corr_cuda(Xt, th), 20)
         plain = cuda_ms(lambda: ref.corr_ref(Xt, th), 20)
         lib_loop = cuda_ms(library, 20)
-        b_ms, b_by = bound_ms(8.0 * (p * n + B * n + B * p), 2.0 * p * n * B)
+        flops, nbytes = corr_work(p, n, B)
+        b_ms, b_by = bound_ms(nbytes, flops)
         log(f"kernel {name}: shape Xt ({p}, {n}) B={B} instantiation=B{geo.B} "
             f"grid={geo.grid} rows_per_tile={geo.rows} tiles={geo.tiles} "
             f"ring_stages={geo.stages} theta_chunks={geo.n_chunks} "
@@ -549,6 +583,7 @@ def check_dual_norm(prob, Xt):
         dual_norm_cuda,
         dual_norm_work,
         sgl_dual_norm_cuda,
+        sgl_dual_norm_work,
     )
 
     dev = prob.device
@@ -661,7 +696,8 @@ def check_dual_norm(prob, Xt):
     flops, nbytes = dual_norm_work(G, ng)
     b_ms, b_by = bound_ms(nbytes, flops)
     # Omega^D at B = 1: corr and w in, terms and the maximum out.
-    b_sgl, b_sgl_by = bound_ms(8.0 * (G * ng + 2 * G + 1), flops)
+    flops_o, nbytes_o = sgl_dual_norm_work(G, ng)
+    b_sgl, b_sgl_by = bound_ms(nbytes_o, flops_o)
     for k, (g_ms, l_ms) in ms.items():
         log(f"kernel dual_norm timing ({k}): shape ({G}, {ng}) ms={g_ms:.4f} "
             f"loop_ms={l_ms:.4f}")
@@ -695,14 +731,16 @@ def check_prox(prob, lam_max: float):
     steps), and one leaf of the LM trainer's prox ((128, 64) f32, step lr,
     w = sqrt(64)) at lam 120, which zeroes part of its rows (it must zero
     some and keep some).  Tolerance: rtol = atol = 1e-12 in f64 and 1e-5 in
-    f32, as the reference's kernel tests.  Each row prints its share of the byte
-    bound and the card's floor for one launch.  Returns the record of the
+    f32, as the reference's kernel tests.  Also the dryrun phase's shard,
+    (16,384, 8) f32, single and batched over B = 256 lambdas.  Each row
+    prints its share of the byte bound and the card's floor for one
+    launch.  Returns the record of the
     (4,096, 8) f64 case (the harness's shape), with the climate, batched
     and LM rows' times beside it; max_abs_err is the largest over all
     rows."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.sgl_prox import sgl_prox_cuda
+    from repro_torch.kernels.sgl_prox import sgl_prox_cuda, sgl_prox_work
     from repro_torch.obs.timing import close_prox
 
     dev = prob.device
@@ -751,6 +789,28 @@ def check_prox(prob, lam_max: float):
                   lambda: sgl_prox_cuda(rows, step_l, w_l, tau_l, lam_l),
                   lambda: ref.sgl_prox_ref(rows, step_l, w_l, tau_l, lam_l),
                   (128, 64, 1)))
+    # the dryrun phase's shard: 16,384 groups of 8 in f32, single and at
+    # B = DRYRUN_B lambdas
+    Gs = 16_384
+    beta_s = (torch.randn((DRYRUN_B, Gs, 8), generator=gen,
+                          dtype=torch.float64, device=dev) * 0.1).float()
+    step_s = torch.full((Gs,), 1.0 / 15.0, dtype=torch.float32, device=dev)
+    w_s = torch.full((Gs,), 8 ** 0.5, dtype=torch.float32, device=dev)
+    lam_s = torch.linspace(1.0, 0.1, DRYRUN_B, dtype=torch.float32,
+                           device=dev)
+    step_sb = (lam_s / 15.0)[:, None].expand(DRYRUN_B, Gs).reshape(-1)
+    w_sb = w_s[None].expand(DRYRUN_B, Gs).reshape(-1)
+    cases.append(("shard (16384, 8) float32", torch.float32,
+                  lambda: sgl_prox_cuda(beta_s[0], step_s, w_s, 0.4, 1.0),
+                  lambda: ref.sgl_prox_ref(beta_s[0], step_s, w_s, 0.4, 1.0),
+                  (Gs, 8, 1)))
+    cases.append((f"batched B={DRYRUN_B} shard (16384, 8) float32",
+                  torch.float32,
+                  lambda: ops.sgl_prox_batched(beta_s, lam_s, 15.0, w_s, 0.4),
+                  lambda: ref.sgl_prox_ref(beta_s.reshape(-1, 8), step_sb,
+                                           w_sb, 0.4, 1.0).reshape(
+                                               DRYRUN_B, Gs, 8),
+                  (Gs, 8, DRYRUN_B)))
     record = None
     floor = floor_ms()
     for label, dtype, kernel, plain, (g, k, b) in cases:
@@ -761,10 +821,10 @@ def check_prox(prob, lam_max: float):
         loop = cuda_ms(kernel, 200)
         plain_ms = cuda_ms(plain, 20)
         item = 8 if dtype == torch.float64 else 4
-        # each input read once, each output written once: beta and out
-        # (b, g, k); step and w (g,) each, or lam_b (b,) and w (g,) batched
-        nbytes = item * (2 * b * g * k + (2 * g if b == 1 else b + g))
-        b_ms, b_by = bound_ms(nbytes, 6.0 * b * g * k, str(dtype)[6:])
+        # the kernel module's work model: beta and out (b, g, k); step and
+        # w (g,) each, or lam_b (b,) and w (g,) batched
+        flops, nbytes = sgl_prox_work(g, k, item, b if b > 1 else 0)
+        b_ms, b_by = bound_ms(nbytes, flops, str(dtype)[6:])
         log(f"kernel sgl_prox ({label}): max_abs_err={err:.3e} "
             f"tol={tol:g} (rtol = atol) ok={ok} zero_groups="
             f"{int((got.reshape(-1, k).abs().sum(-1) == 0).sum())} ms={ms:.4f} "
@@ -787,9 +847,16 @@ def check_prox(prob, lam_max: float):
                 max_abs_err=err, ms=ms, loop_ms=loop, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 launch_floor_ms=floor)
-        elif b > 1:
+        elif b == 8:
             record.update(ms_b8=ms, loop_ms_b8=loop, plain_ms_b8=plain_ms,
                           bound_ms_b8=b_ms)
+        elif b == DRYRUN_B:
+            record.update(ms_shard_b256=ms, loop_ms_shard_b256=loop,
+                          plain_ms_shard_b256=plain_ms,
+                          bound_ms_shard_b256=b_ms)
+        elif g == Gs:
+            record.update(ms_shard=ms, loop_ms_shard=loop,
+                          plain_ms_shard=plain_ms, bound_ms_shard=b_ms)
         if dtype == torch.float64 and b == 1 and g == G:
             record.update(ms_climate=ms, bound_ms_climate=b_ms)
         if (g, k) == (128, 64):
@@ -2300,6 +2367,227 @@ def run_lm(dev=None):
     return launches, record
 
 
+def _dryrun_shard(cfg, dev):
+    """One rank's shard of the sgl-paper cell on the 256-rank mesh, on the
+    card from a seeded CUDA generator: the design in f32 and in bf16, the
+    single-lambda state, and the B = DRYRUN_B state in f32; the scalars as
+    host floats, as the step takes them."""
+    import torch
+
+    n_l, G_l, ng = cfg.n_samples // 16, cfg.n_groups // 16, cfg.group_size
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f32 = torch.float32
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, dtype=f32,
+                           device=dev) * scale
+
+    # Unit-variance columns: corr = X^T y is ~N(0, 1), ||X||^2 ~ 15.
+    X = randn((n_l, G_l, ng), n_l ** -0.5)
+    Xh = X.to(torch.bfloat16)
+    y = randn((n_l,))
+    beta, z = randn((G_l, ng), 0.01), randn((G_l, ng), 0.01)
+    ones = torch.ones((G_l, ng), dtype=f32, device=dev)
+    w = torch.full((G_l,), ng ** 0.5, dtype=f32, device=dev)
+    B = DRYRUN_B
+    bb, zb = randn((B, G_l, ng), 0.01), randn((B, G_l, ng), 0.01)
+    onesb = torch.ones((B, G_l, ng), dtype=f32, device=dev)
+    tb = torch.ones((B,), dtype=f32, device=dev)
+    lam_b = torch.linspace(1.0, 0.1, B, dtype=f32, device=dev)
+    colnorm = torch.linalg.vector_norm(X, dim=0)
+    gfro = torch.linalg.vector_norm(X, dim=(0, 2))
+    t, lam_, L = 1.0, 0.5, 15.0
+    ynorm2 = float((y * y).sum())
+    return {
+        "fista": ("fista", (X, y, beta, z, ones, w, t, lam_, L)),
+        "fista_bf16": ("fista", (Xh, y, beta, z, ones, w, t, lam_, L)),
+        f"fista_batch{B}_bf16": ("fista_batch",
+                                 (Xh, y, bb, zb, onesb, w, tb, lam_b, L)),
+        "screen": ("screen", (X, y, beta, ones, w, colnorm, gfro, lam_,
+                              ynorm2)),
+    }
+
+
+def _compare_step(name, got, want):
+    """A step's outputs (tensors and host floats) with the kernels against
+    the plain backends': DRYRUN_TOL on every float, up to DRYRUN_MASK_FLIPS
+    flipped mask entries; returns (max_abs_err, mask flips)."""
+    import torch
+
+    err, flips = 0.0, 0
+    for g, w in zip(got, want):
+        g, w = (torch.as_tensor(v, dtype=torch.float64) for v in (g, w))
+        if name == "screen" and g.numel() > 1:
+            flips += int((g != w).sum())
+            continue
+        e = (g - w).abs()
+        err = max(err, float(e.max()))
+        if not bool((e <= DRYRUN_TOL * (1.0 + w.abs())).all()):
+            raise AssertionError(f"dryrun {name}: the kernels disagree with "
+                                 f"the plain backends ({float(e.max()):.3e})")
+    if flips > DRYRUN_MASK_FLIPS:
+        raise AssertionError(f"dryrun {name}: {flips} mask entries flipped")
+    return err, flips
+
+
+def _median_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` calls of ``fn``, each between its own pair of CUDA
+    events, after one warm-up call."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, stop in ev:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(stop) for start, stop in ev)
+
+
+def _run_dryrun_card(sgl_cell, dev="cuda"):
+    """One 256-rank shard of the sgl-paper cell on the card, on the one-rank
+    NCCL mesh: each of the dry run's four functions once with the kernels
+    (launch counts zeroed just before and read just after: they must equal
+    the dry run's) and once with the plain backends, compared; then each
+    timed (CUDA events, median of 5 after a warm-up) beside the dry run's
+    per-rank roofline terms.  Returns (the kernel runs' launch counts, the
+    per-function records, peak GiB, the shard's set-up seconds)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.distributed.solver_dist import make_dist_step
+    from repro_torch.kernels import _util
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dev = torch.device(dev)
+    cfg = get("sgl-paper")
+    mesh = make_test_mesh(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shard = _dryrun_shard(cfg, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps = {}
+    for backend in ("cuda", "torch"):
+        for dtype in (torch.float32, torch.bfloat16):
+            steps[backend, dtype] = make_dist_step(
+                mesh, tau=cfg.tau, dtype=dtype, screen_backend=backend,
+                solver_backend=backend)
+    launches = {k: 0 for k in _util.launch_counts()}
+    records = {}
+    for name, (fn_name, args) in shard.items():
+        dtype = args[0].dtype
+        kernel = getattr(steps["cuda", dtype], fn_name)
+        plain = getattr(steps["torch", dtype], fn_name)
+        got, counts = counted(f"dryrun {name}", lambda: kernel(*args),
+                              DRYRUN_KERNELS[name], ())
+        want = plain(*args)
+        expect = sgl_cell[name]["counts"]["launches"]
+        nonzero = {k: v for k, v in counts.items() if v}
+        if nonzero != expect or expect != DRYRUN_KERNELS[name]:
+            raise AssertionError(f"dryrun {name}: launches {nonzero} on the "
+                                 f"card, {expect} in the dry run")
+        for k, v in counts.items():
+            launches[k] += v
+        err, flips = _compare_step(name, got, want)
+        del got, want
+        times = {label: _median_ms(lambda f=fn: f(*args))
+                 for label, fn in (("kernels", kernel), ("plain", plain))}
+        roof = sgl_cell[name]["roofline"]
+        bound = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+        records[name] = dict(
+            ms=times["kernels"], plain_ms=times["plain"],
+            t_compute_ms=roof["t_compute_s"] * 1e3,
+            t_memory_ms=roof["t_memory_s"] * 1e3,
+            t_collective_ms=roof["t_collective_s"] * 1e3,
+            bound_ms=bound, share_of_bound=bound / times["kernels"],
+            bottleneck=roof["bottleneck"], max_abs_err=err, mask_flips=flips,
+            launches=nonzero)
+        log(f"dryrun {name}: shard n_l={args[0].shape[0]} "
+            f"G_l={args[0].shape[1]} ng={args[0].shape[2]} "
+            f"design={str(dtype)[6:]} ms={times['kernels']:.4f} plain_ms="
+            f"{times['plain']:.4f} dry-run t_compute_ms="
+            f"{records[name]['t_compute_ms']:.4f} t_memory_ms="
+            f"{records[name]['t_memory_ms']:.4f} ({roof['bottleneck']}) "
+            f"share_of_bound={bound / times['kernels']:.3f} "
+            f"max_abs_err={err:.3e} tol={DRYRUN_TOL:g} (rtol = atol) "
+            f"mask_flips={flips} launches={json.dumps(nonzero)} "
+            f"card={CARD!r}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del shard, steps, mesh
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches, records, peak, setup_s
+
+
+def run_dryrun():
+    """The dry run and its cost model: ``python -m repro_torch.launch.dryrun
+    --all`` into ``build/dryrun/`` as a subprocess (its fake process group
+    of 256 or 512 ranks must not meet this script's NCCL group), rendered by
+    ``python -m repro_torch.launch.report``; meanwhile one rank's shard of
+    the sgl-paper cell on the card (:func:`_run_dryrun_card`).  Over the
+    one-rank group the all-reduces are identities.  Returns (launch counts,
+    the phase's record)."""
+    import shutil
+    import signal
+
+    from repro_torch.launch.report import load
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    sweep = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out",
+         str(out_dir), "--timeout", "300"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        # The card's part needs the sgl-paper cell's counts: the sweep's
+        # first cell, written whole (renamed into place) after ~7 s.
+        first = out_dir / "sgl-paper_solve_single.json"
+        while not first.exists() and sweep.poll() is None:
+            time.sleep(0.5)
+        sgl_cell = json.loads(first.read_text())
+        if sgl_cell.get("status") != "ok":
+            raise AssertionError(f"dryrun: the sgl-paper cell failed: "
+                                 f"{sgl_cell}")
+        launches, records, peak, setup_s = _run_dryrun_card(sgl_cell)
+        sweep_log, _ = sweep.communicate(timeout=DRYRUN_SWEEP_S)
+    finally:
+        if sweep.poll() is None:
+            os.killpg(sweep.pid, signal.SIGKILL)
+            sweep.wait()
+    log(sweep_log.rstrip())
+    if sweep.returncode != 0:
+        raise AssertionError(f"dryrun: the sweep exited {sweep.returncode}")
+    report = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report", str(out_dir)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    (out_dir / "report.md").write_text(report)
+    log(report.rstrip())
+    cells = load(str(out_dir))
+    status = {f"{c['arch']}/{c['shape']}/"
+              f"{'multi' if c['multi_pod'] else 'single'}": c["status"]
+              for c in cells}
+    if len(cells) != DRYRUN_CELLS or sorted(status.values()) != (
+            ["ok"] * 8 + ["skipped"] * 2):
+        raise AssertionError(f"dryrun: cells {status}")
+    return launches, dict(
+        cells=status, shard=dict(n_l=16_384, G_l=16_384, ng=8, B=DRYRUN_B),
+        functions=records, peak_gib=peak, setup_s=setup_s,
+        collectives="identities: all-reduces over a one-rank NCCL group",
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -2417,6 +2705,9 @@ def main() -> int:
     counts, lm = run_lm()
     add(counts)
     phase_line("lm", lm)
+    counts, dryrun = run_dryrun()
+    add(counts)
+    phase_line("dryrun", dryrun)
 
     kernels = [dict(records[k], launches=launches[k]) for k in
                ("corr", "dual_norm", "bcd_epoch", "screening_scores",

@@ -33,7 +33,8 @@ from .kernels._util import resolve_device
 from .losses import Loss, get_loss
 from .rules import ScreeningRule, get_rule
 
-__all__ = ["beta_from_reference", "lm_params_from_reference", "lm_params_to_reference",
+__all__ = ["beta_from_reference", "lm_params_from_reference",
+           "lm_params_to_reference", "lm_reference_structs",
            "loss_from_reference", "path_result_to_numpy",
            "problem_from_reference", "rule_from_reference"]
 
@@ -183,23 +184,20 @@ def lm_params_from_reference(cfg, tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def lm_params_to_reference(cfg, state_dict) -> dict:
-    """The port's state dict (or model) of ``cfg`` as the reference's
-    parameter tree of numpy arrays (stacked layers, (in, out) matrices)."""
-    if isinstance(state_dict, torch.nn.Module):
-        state_dict = state_dict.state_dict()
-    host = lambda t: t.detach().cpu().float().numpy() \
-        if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+def _reference_tree(cfg, state_dict, leaf, stack) -> dict:
+    """The reference's parameter tree of ``cfg`` from the port's state dict:
+    ``leaf(tensor, transform)`` converts one port leaf, ``stack`` joins a
+    layer stack's leaves."""
     tree: dict = {}
     for path, n_stack in _reference_leaves(cfg):
         if n_stack:
-            arr = np.stack([_to_reference(host(state_dict[name]), how)
-                            for name, how in (
-                                _port_leaf((path[0], str(i)) + path[1:])
-                                for i in range(n_stack))])
+            arr = stack([leaf(state_dict[name], how)
+                         for name, how in (
+                             _port_leaf((path[0], str(i)) + path[1:])
+                             for i in range(n_stack))])
         else:
             name, how = _port_leaf(path)
-            arr = _to_reference(host(state_dict[name]), how)
+            arr = leaf(state_dict[name], how)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -209,3 +207,32 @@ def lm_params_to_reference(cfg, state_dict) -> dict:
                           for i in range(len(tree["layers"]))]
     return tree
 
+
+def lm_params_to_reference(cfg, state_dict) -> dict:
+    """The port's state dict (or model) of ``cfg`` as the reference's
+    parameter tree of numpy arrays (stacked layers, (in, out) matrices)."""
+    if isinstance(state_dict, torch.nn.Module):
+        state_dict = state_dict.state_dict()
+    host = lambda t: t.detach().cpu().float().numpy() \
+        if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+    return _reference_tree(cfg, state_dict,
+                           lambda t, how: _to_reference(host(t), how),
+                           np.stack)
+
+
+def _reference_view(t: torch.Tensor, how: str) -> torch.Tensor:
+    if how == "T":
+        return t.transpose(-1, -2)
+    if how == "conv":
+        return t[:, 0, :].T
+    return t
+
+
+def lm_reference_structs(cfg, state_dict) -> dict:
+    """The port's state dict (or model) of ``cfg``, or a tree keyed like it
+    (an optimizer moment), in the reference's tree layout as tensors:
+    views, and stacks of a layer stack's leaves.  On meta tensors nothing
+    is allocated; the dry run pairs the result with ``param_specs``."""
+    if isinstance(state_dict, torch.nn.Module):
+        state_dict = state_dict.state_dict()
+    return _reference_tree(cfg, state_dict, _reference_view, torch.stack)

@@ -10,7 +10,9 @@ Where the reference's ``shard_map`` hands each device its block and inserts
 ``psum``/``pmax``, every function here runs on the calling rank's local
 shard and issues the collectives itself, on the mesh's sub-groups
 (:mod:`repro_torch.distributed.sharding` has the layout).  Every collective
-is issued whatever the group's size, so a world of one still runs them.
+is issued whatever the group's size, so a world of one still runs them.  On
+the multi-pod mesh the data-parallel sum runs over one group flattened from
+("pod", "data"), one all-reduce as the reference's ``psum`` over both axes.
 
 Communication pattern per FISTA step:
     grad   = X^T resid          local product + all_reduce(SUM) over data
@@ -63,15 +65,17 @@ class DistSGLState(NamedTuple):
     step: int
 
 
-def _dp_axes(multi_pod: bool) -> tuple:
-    return ("pod", "data") if multi_pod else ("data",)
+def _dp_group(mesh, multi_pod: bool):
+    """The data-parallel group: "data", or on the multi-pod mesh the
+    flattened ("pod", "data") dimension."""
+    if multi_pod:
+        return mesh["pod", "data"]._flatten().get_group()
+    return mesh.get_group("data")
 
 
-def _all_reduce(t: torch.Tensor, groups, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all_reduce of ``t`` over each group in turn (a sum or max
-    over the product of the mesh dimensions)."""
-    for g in groups:
-        dist.all_reduce(t, op=op, group=g)
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place all_reduce of ``t`` over ``group``."""
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -90,8 +94,8 @@ def make_dist_step(mesh, *, tau: float, multi_pod: bool = False,
     """
     check_group_backends(mesh)
     tau = float(tau)
-    dp_groups = [mesh.get_group(a) for a in _dp_axes(multi_pod)]
-    mp_groups = [mesh.get_group("model")]
+    dp_group = _dp_group(mesh, multi_pod)
+    mp_group = mesh.get_group("model")
     acc = torch.promote_types(dtype, torch.float32)
 
     def _flat(X):
@@ -101,11 +105,11 @@ def make_dist_step(mesh, *, tau: float, multi_pod: bool = False,
     def local_corr(X, v):
         # X (n_l, G_l, ng), v (n_l,) -> (G_l, ng), summed over data
         c = torch.mv(_flat(X).T, v.to(X.dtype).to(acc))
-        return _all_reduce(c, dp_groups).reshape(X.shape[1], X.shape[2])
+        return _all_reduce(c, dp_group).reshape(X.shape[1], X.shape[2])
 
     def local_matvec(X, b):
         r = torch.mv(_flat(X), b.to(X.dtype).to(acc).reshape(-1))
-        return _all_reduce(r, mp_groups)
+        return _all_reduce(r, mp_group)
 
     def prox(u, w, lam_, L):
         # the two-level prox at step 1/L on every local group
@@ -132,9 +136,9 @@ def make_dist_step(mesh, *, tau: float, multi_pod: bool = False,
         B = beta.shape[0]
         Xf = _flat(X)
         r = torch.mm(z.to(X.dtype).to(acc).reshape(B, -1), Xf.T)   # (B, n_l)
-        resid = y[None, :] - _all_reduce(r, mp_groups)
+        resid = y[None, :] - _all_reduce(r, mp_group)
         g = torch.mm(resid.to(X.dtype).to(acc), Xf)               # (B, p_l)
-        grad = -_all_reduce(g, dp_groups).reshape(beta.shape)
+        grad = -_all_reduce(g, dp_group).reshape(beta.shape)
         u = (z - grad / L) * feat_mask
         if solver_backend == "cuda":
             beta_new = kops.sgl_prox_batched(u, lam_b, L, w, tau)
@@ -149,11 +153,11 @@ def make_dist_step(mesh, *, tau: float, multi_pod: bool = False,
     # --- design-matrix norms (constants of the problem; computed once) ---
     def norms(X):
         Xa = X.to(acc)
-        colnorm = _all_reduce((Xa * Xa).sum(dim=0), dp_groups).sqrt()
+        colnorm = _all_reduce((Xa * Xa).sum(dim=0), dp_group).sqrt()
         # ||X_g||_2 <= ||X_g||_F: Frobenius is a safe (over-)estimate, so
         # the screening ball bound (Thm 1) stays valid without a
         # distributed power iteration
-        gfro = _all_reduce((Xa * Xa).sum(dim=(0, 2)), dp_groups).sqrt()
+        gfro = _all_reduce((Xa * Xa).sum(dim=(0, 2)), dp_group).sqrt()
         return colnorm, gfro
 
     # --- screening round ---
@@ -166,7 +170,7 @@ def make_dist_step(mesh, *, tau: float, multi_pod: bool = False,
         resid = y - local_matvec(X, beta)
         corr = local_corr(X, resid)                     # (G_l, ng), all rows
         dmax = _dual_terms(corr, tau, w, screen_backend)[1]
-        dual_norm = _all_reduce(dmax, mp_groups,
+        dual_norm = _all_reduce(dmax, mp_group,
                                 op=dist.ReduceOp.MAX)[0]
         sc = torch.clamp(dual_norm, min=lam_)
 
@@ -175,10 +179,10 @@ def make_dist_step(mesh, *, tau: float, multi_pod: bool = False,
         norms_ = torch.stack([beta.abs().sum(),
                               (w * torch.linalg.vector_norm(beta, dim=-1))
                               .sum()])
-        l1, l2 = _all_reduce(norms_, mp_groups)
+        l1, l2 = _all_reduce(norms_, mp_group)
         rows = torch.stack([0.5 * (resid * resid).sum(),
                             ((resid / sc - y / lam_) ** 2).sum()])
-        fit, ydist = _all_reduce(rows, dp_groups)
+        fit, ydist = _all_reduce(rows, dp_group)
         primal = fit + lam_ * (tau * l1 + (1.0 - tau) * l2)
         dual_val = 0.5 * ynorm2 - 0.5 * lam_ * lam_ * ydist
         gap = torch.clamp(primal - dual_val, min=0.0)

@@ -13,6 +13,7 @@ path went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
                     Tuple, Union)
@@ -28,12 +29,15 @@ __all__ = [
     "raise_on_launch_error",
     "stream_handle",
     "LaunchSpec",
+    "MetaWork",
     "Output",
     "Tile",
     "built_attributes",
     "launch_counts",
     "launch_metric_names",
     "max_active",
+    "meta_count",
+    "meta_launch",
     "on_hopper",
     "reset_launch_counts",
     "resolve_device",
@@ -147,6 +151,49 @@ def launch_metric_names() -> Dict[str, str]:
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     REGISTRY.reset(launch_metric_names().values())
+
+
+class MetaWork:
+    """The kernel launches a step would make, counted on meta tensors:
+    launches by kernel name, and the operations and bytes of their work
+    models summed."""
+
+    __slots__ = ("launches", "flops", "bytes")
+
+    def __init__(self) -> None:
+        self.launches: Dict[str, int] = {}
+        self.flops = 0.0
+        self.bytes = 0.0
+
+
+_META_COUNTS: list = []
+
+
+@contextlib.contextmanager
+def meta_count():
+    """Open a :class:`MetaWork` for the wrappers' meta branches (the
+    innermost open one counts) and yield it."""
+    work = MetaWork()
+    _META_COUNTS.append(work)
+    try:
+        yield work
+    finally:
+        _META_COUNTS.remove(work)
+
+
+def meta_launch(name: str, flops: float, nbytes: float) -> None:
+    """Count one launch of kernel ``name`` that a wrapper was asked for on
+    meta tensors.  Raises when no :func:`meta_count` is open: nothing runs
+    on a meta tensor, so outside a count the call is an error."""
+    if not _META_COUNTS:
+        raise RuntimeError(
+            f"the {name} kernel's wrapper was given a meta tensor with no "
+            "count open: meta tensors are for the dry run's counts "
+            "(repro_torch.launch.roofline.count_step)")
+    work = _META_COUNTS[-1]
+    work.launches[name] = work.launches.get(name, 0) + 1
+    work.flops += float(flops)
+    work.bytes += float(nbytes)
 
 
 def check_operand(name: str, t: torch.Tensor, shape: Tuple[int, ...],

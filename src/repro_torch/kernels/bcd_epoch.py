@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,7 +40,7 @@ from ._util import (
 
 __all__ = ["BcdGeometry", "LAUNCHES", "LOGISTIC_LAUNCHES", "bcd_epoch_cuda",
            "bcd_epoch_geometry", "bcd_epoch_launch_spec",
-           "bcd_epoch_max_active_clusters"]
+           "bcd_epoch_max_active_clusters", "bcd_epoch_work"]
 
 LAUNCHES = LaunchCounter("bcd_epoch")
 LOGISTIC_LAUNCHES = LaunchCounter("bcd_epoch_logistic")
@@ -183,6 +183,24 @@ def bcd_epoch_launch_spec(B: int, Gb: int, n: int, ng: int,
                                 Output("carry", B * n)),
                        geometry=geo),
             geo.beta_in_smem)
+
+
+def bcd_epoch_work(B: int, Gb: int, n: int, ng: int, n_epochs: int,
+                   loss: str = "lsq",
+                   live: Optional[int] = None) -> Tuple[float, float]:
+    """(operations, bytes) that ``n_epochs`` BCD epochs of B lambdas over a
+    (Gb, n, ng) f64 buffer need at least, either loss: each live group's
+    gradient reduction, 2 n ng operations per lambda and epoch (``live``:
+    the groups with a nonzero Lipschitz constant, all ``Gb`` unless given;
+    the residual updates of moving groups depend on the data and are not
+    counted); bytes: each input read once (Xt, Lg, w, fmask, beta, lam_b,
+    carry, and y for the logistic loss) and each output (beta, carry)
+    written once."""
+    live = Gb if live is None else live
+    flops = 2.0 * B * n_epochs * live * n * ng
+    nbytes = 8.0 * (Gb * n * ng + 2 * Gb + 3 * B * Gb * ng + B + 2 * B * n
+                    + (n if loss == "logistic" else 0))
+    return flops, nbytes
 
 
 def _lib(name: str) -> ctypes.CDLL:

@@ -41,7 +41,7 @@ from ._util import (
 __all__ = ["DualNormGeometry", "LAUNCHES", "dual_norm_cuda",
            "dual_norm_geometry", "dual_norm_launch_spec", "dual_norm_work",
            "group_width", "sgl_dual_norm_cuda", "sgl_dual_norm_geometry",
-           "sgl_dual_norm_launch_spec"]
+           "sgl_dual_norm_launch_spec", "sgl_dual_norm_work"]
 
 LAUNCHES = LaunchCounter("dual_norm")
 BLOCK = 256
@@ -136,6 +136,18 @@ def dual_norm_work(groups: int, ng: int) -> Tuple[float, float]:
     logn = max(ng - 1, 0).bit_length()
     return (float(groups * (ng * (logn + 16) + 12)),
             8.0 * groups * (ng + 3))
+
+
+def sgl_dual_norm_work(Gb: int, ng: int, B: int = 1, itemsize: int = 8,
+                       masked: bool = False) -> Tuple[float, float]:
+    """(operations, bytes) of the Omega^D entry over B segments of Gb groups:
+    :func:`dual_norm_work`'s operations for the B Gb groups; bytes: corr
+    (B Gb, ng) and w (Gb,) read once (and the mask, a byte a group), the
+    terms (B Gb,) and the maxima (B,) written once, ``itemsize`` bytes an
+    entry."""
+    flops = dual_norm_work(B * Gb, ng)[0]
+    return flops, float(itemsize * (B * Gb * ng + Gb + B * Gb + B)
+                        + (Gb if masked else 0))
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,7 +3,13 @@
 Every wrapper dispatches on the device of the tensors it is given: on a CPU
 tensor it runs the kernel's plain version (:mod:`repro_torch.kernels.ref`),
 on a CUDA tensor it launches the hand-written kernel, or raises.  There is
-no fallback from a failed launch to the plain version.
+no fallback from a failed launch to the plain version.  On a meta tensor
+(the dry run) it launches nothing: it returns empty meta outputs of the
+kernel's shapes and dtypes and counts one launch, with the operations and
+bytes of the kernel module's ``*_work`` model, in the open
+:func:`repro_torch.kernels._util.meta_count` (raising when none is open).
+The kernels are not custom ops: a dispatcher hop per launch would add to
+the solver's host path, which is launch-bound.
 
 The TPU kernels' (256, 128) padding is not carried over: the CUDA kernels
 mask their own ragged edges, so the persistent transposed design is exactly
@@ -25,20 +31,29 @@ import torch
 from . import _util, ref
 from ..analysis.registry import register_kernel_audit
 from ..obs.metrics import REGISTRY, ScopeView
-from .bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec
+from .bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec, bcd_epoch_work
 from .dual_norm import (
     dual_norm_cuda,
     dual_norm_launch_spec,
+    dual_norm_work,
     sgl_dual_norm_cuda,
     sgl_dual_norm_launch_spec,
+    sgl_dual_norm_work,
 )
 from .screening_scores import (
     corr_launch_spec,
+    corr_work,
     screening_corr_cuda,
     screening_scores_cuda,
     screening_scores_launch_spec,
+    scores_work,
 )
-from .sgl_prox import sgl_prox_batched_cuda, sgl_prox_cuda, sgl_prox_launch_spec
+from .sgl_prox import (
+    sgl_prox_batched_cuda,
+    sgl_prox_cuda,
+    sgl_prox_launch_spec,
+    sgl_prox_work,
+)
 
 __all__ = [
     "AuditCounters",
@@ -63,8 +78,30 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+def _on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+_F64 = (torch.float64,)
+_F32_F64 = (torch.float32, torch.float64)
+
+
+def _meta_launch(name: str, work, t: torch.Tensor, dtypes, *shapes):
+    """The meta branch: the kernel's dtype check, one counted launch of
+    ``work`` = (operations, bytes), and empty meta outputs of ``shapes`` in
+    ``t``'s dtype (a tuple when there are several)."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"the {name} kernel takes {dtypes}, got {t.dtype}")
+    _util.meta_launch(name, *work)
+    outs = tuple(torch.empty(s, dtype=t.dtype, device="meta") for s in shapes)
+    return outs if len(outs) > 1 else outs[0]
+
+
 def screening_corr(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """corr = Xt @ theta: Xt (p, n), theta (n,) -> (p,)."""
+    if _on_meta(Xt):
+        return _meta_launch("corr", corr_work(*Xt.shape), Xt, _F64,
+                            (Xt.shape[0],))
     if _on_cpu(Xt):
         return ref.corr_ref(Xt, theta)
     return screening_corr_cuda(Xt.contiguous(), theta.contiguous())
@@ -73,6 +110,10 @@ def screening_corr(Xt: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
 def screening_scores(Xt: torch.Tensor, theta: torch.Tensor, tau):
     """Fused corr = Xt @ theta and st2 = S_tau(corr)^2: Xt (p, n),
     theta (n,) -> two (p,) tensors."""
+    if _on_meta(Xt):
+        p = Xt.shape[0]
+        return _meta_launch("screening_scores", scores_work(*Xt.shape), Xt,
+                            _F64, (p,), (p,))
     if _on_cpu(Xt):
         return ref.screening_scores_ref(Xt, theta, tau)
     return screening_scores_cuda(Xt.contiguous(), theta.contiguous(),
@@ -82,6 +123,10 @@ def screening_scores(Xt: torch.Tensor, theta: torch.Tensor, tau):
 def screening_corr_batched(Xt: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     """Batched corr: Xt (p, n), thetas (B, n) -> (B, p); one pass over the
     design serves up to 8 residuals."""
+    if _on_meta(Xt):
+        B = thetas.shape[0]
+        return _meta_launch("corr", corr_work(*Xt.shape, B), Xt, _F64,
+                            (B, Xt.shape[0]))
     if _on_cpu(Xt):
         return ref.corr_ref(Xt, thetas)
     return screening_corr_cuda(Xt.contiguous(), thetas.contiguous())
@@ -136,6 +181,9 @@ def dual_norm_groups(x: torch.Tensor, alpha: torch.Tensor,
     """Per-group Lambda(x_g, alpha_g, R_g); x (G, ng), alpha/R (G,) -> (G,).
     The plain version is the exact sorted form (paper Algorithm 1), which
     the kernel evaluates too."""
+    if _on_meta(x):
+        return _meta_launch("dual_norm", dual_norm_work(*x.shape), x, _F64,
+                            (x.shape[0],))
     if _on_cpu(x):
         return ref.dual_norm_ref(x, alpha, R)
     return dual_norm_cuda(x, alpha, R)
@@ -151,6 +199,13 @@ def sgl_dual_norm_terms_fused(corr_grouped: torch.Tensor, tau,
     maximum of those whose group is set in ``mask`` (0 for the others),
     (B,).  Both run in the inputs' dtype, float64 or float32 (the mesh
     strategy's f32 program)."""
+    if _on_meta(corr_grouped):
+        rows, ng = corr_grouped.shape
+        work = sgl_dual_norm_work(rows // B, ng, B,
+                                  corr_grouped.element_size(),
+                                  mask is not None)
+        return _meta_launch("dual_norm", work, corr_grouped, _F32_F64,
+                            (rows,), (B,))
     if _on_cpu(corr_grouped):
         return ref.sgl_dual_norm_ref(corr_grouped, tau, w, mask, B)
     return sgl_dual_norm_cuda(corr_grouped, w, float(tau), mask, B)
@@ -166,6 +221,11 @@ def bcd_epochs_fused(Xt, Lg, w, fmask, beta, carry, tau, lam_b,
     epochs).  Returns new ``(beta, carry)``."""
     if n_epochs <= 0:
         return beta, carry
+    if _on_meta(Xt):
+        loss = "lsq" if y is None else "logistic"
+        name = "bcd_epoch" if y is None else "bcd_epoch_logistic"
+        work = bcd_epoch_work(beta.shape[0], *Xt.shape, n_epochs, loss)
+        return _meta_launch(name, work, Xt, _F64, beta.shape, carry.shape)
     if _on_cpu(Xt):
         if y is None:
             return ref.bcd_epochs_ref(Xt, Lg, w, fmask, beta, carry, tau,
@@ -183,6 +243,10 @@ def sgl_prox(beta: torch.Tensor, step: torch.Tensor, w: torch.Tensor,
              tau, lam) -> torch.Tensor:
     """Fused two-level prox S^gp_{(1-tau) w lam step}(S_{tau lam step}(beta));
     beta (G, ng), step/w (G,), f32 or f64.  Any G, ng."""
+    if _on_meta(beta):
+        return _meta_launch("sgl_prox",
+                            sgl_prox_work(*beta.shape, beta.element_size()),
+                            beta, _F32_F64, beta.shape)
     if _on_cpu(beta):
         return ref.sgl_prox_ref(beta, step, w, tau, lam)
     return sgl_prox_cuda(beta.contiguous(), step.contiguous(), w.contiguous(),
@@ -195,6 +259,11 @@ def sgl_prox_batched(beta: torch.Tensor, lam_b: torch.Tensor, L, w: torch.Tensor
     (B,), L a scalar or (B,), w (G,).  Each (b, g) row is an independent
     prox at step lam_b[b] / L: on the card one launch that forms the steps
     itself; the plain version is :func:`ref.sgl_prox_batched_ref`."""
+    if _on_meta(beta):
+        B, G, ng = beta.shape
+        return _meta_launch("sgl_prox",
+                            sgl_prox_work(G, ng, beta.element_size(), B),
+                            beta, _F32_F64, beta.shape)
     if _on_cpu(beta):
         return ref.sgl_prox_batched_ref(beta, lam_b, L, w, tau)
     return sgl_prox_batched_cuda(beta, lam_b, L, w, float(tau))
@@ -247,7 +316,9 @@ def audit_scope():
 # (128 groups of 10, n = 100) and the elastic design's (n = 10,100, where
 # the BCD kernel runs without its ring); the LM trainer's prox on the demo
 # model's FFN leaves ((F, D) = (128, 64) f32 rows, one launch a leaf); and
-# the Omega^D of launch.train --solver's f32 rounds (100 groups of 10).
+# the Omega^D of launch.train --solver's f32 rounds (100 groups of 10); and
+# one rank's shard of the dry run's sgl-paper cell (16,384 groups of 8, f32;
+# the batched prox at B = 256).
 # ---------------------------------------------------------------------------
 
 _AUDITS = {
@@ -282,6 +353,11 @@ _AUDITS = {
     "sgl_prox/batched-b8-f64": lambda: sgl_prox_launch_spec(10_512, 7, 8, 8),
     "sgl_prox/batched-b8-f32": lambda: sgl_prox_launch_spec(10_512, 7, 4, 8),
     "sgl_prox/lm-demo-f32": lambda: sgl_prox_launch_spec(128, 64, 4),
+    "sgl_prox/shard-f32": lambda: sgl_prox_launch_spec(16_384, 8, 4),
+    "sgl_prox/shard-b256-f32":
+        lambda: sgl_prox_launch_spec(16_384, 8, 4, 256),
+    "dual_norm/omega-shard-f32":
+        lambda: sgl_dual_norm_launch_spec(16_384, 8, 1, 4),
 }
 for _name, _builder in _AUDITS.items():
     register_kernel_audit(_name, _builder)

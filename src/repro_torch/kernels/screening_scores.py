@@ -38,9 +38,9 @@ from ._util import (
 )
 
 __all__ = ["LAUNCHES", "SCORES_LAUNCHES", "CorrGeometry", "ScoresGeometry",
-           "corr_geometry", "corr_launch_spec", "screening_corr_cuda",
-           "screening_scores_cuda", "screening_scores_geometry",
-           "screening_scores_launch_spec"]
+           "corr_geometry", "corr_launch_spec", "corr_work",
+           "scores_work", "screening_corr_cuda", "screening_scores_cuda",
+           "screening_scores_geometry", "screening_scores_launch_spec"]
 
 LAUNCHES = LaunchCounter("corr")
 SCORES_LAUNCHES = LaunchCounter("screening_scores")
@@ -220,6 +220,20 @@ class ScoresGeometry(NamedTuple):
         below p (the kernel's warp-index mask)."""
         r0, r1 = bx * self.rows, min((bx + 1) * self.rows, self.p)
         return [Tile("corr", r0, r1), Tile("st2", r0, r1)] if r0 < r1 else []
+
+
+def corr_work(p: int, n: int, B: int = 1) -> tuple:
+    """(operations, bytes) of corr over a (p, n) f64 design and B
+    residuals: 2 p n operations per residual; the design, the residuals and
+    the (B, p) result each moved once."""
+    return 2.0 * p * n * B, 8.0 * (p * n + B * n + B * p)
+
+
+def scores_work(p: int, n: int) -> tuple:
+    """(operations, bytes) of the fused scores over a (p, n) f64 design:
+    the matvec's 2 p n and ~4 a row for (|corr| - tau)_+^2; the design and
+    theta read once, corr and st2 written once."""
+    return 2.0 * p * n + 4.0 * p, 8.0 * (p * n + n + 2 * p)
 
 
 def screening_scores_geometry(p: int, n: int) -> ScoresGeometry:

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -38,7 +38,8 @@ from ._util import (
 )
 
 __all__ = ["LAUNCHES", "ProxGeometry", "sgl_prox_batched_cuda",
-           "sgl_prox_cuda", "sgl_prox_geometry", "sgl_prox_launch_spec"]
+           "sgl_prox_cuda", "sgl_prox_geometry", "sgl_prox_launch_spec",
+           "sgl_prox_work"]
 
 LAUNCHES = LaunchCounter("sgl_prox")
 BLOCK = 256
@@ -95,6 +96,18 @@ def sgl_prox_launch_spec(G: int, ng: int, itemsize: int = 8,
     return LaunchSpec("sgl_prox", (geo.grid, 1, 1), (BLOCK, 1, 1),
                       geo.smem_bytes, variant=2 * (itemsize == 8) + (B > 0),
                       outputs=(Output("out", rows * ng),), geometry=geo)
+
+
+def sgl_prox_work(G: int, ng: int, itemsize: int = 8,
+                  B: int = 0) -> Tuple[float, float]:
+    """(operations, bytes) of one prox over beta (G, ng), or with ``B`` >= 1
+    over a batched state (B, G, ng): ~6 operations an entry (the shrink,
+    the row norm, the group scale); bytes: beta read and the result written
+    once, and step and w (G,) each, or batched lam_b (B,) and w (G,),
+    ``itemsize`` bytes an entry."""
+    rows = B * G if B else G
+    return (6.0 * rows * ng,
+            float(itemsize * (2 * rows * ng + (B + G if B else 2 * G))))
 
 
 @functools.lru_cache(maxsize=None)

@@ -73,8 +73,11 @@ def make_test_mesh(device=None) -> DeviceMesh:
 
 def check_group_backends(mesh: DeviceMesh) -> None:
     """Raise unless every dimension's group of ``mesh`` runs the backend of
-    the mesh's device type (a CUDA tensor is never passed to gloo)."""
-    want = GROUP_BACKEND.get(mesh.device_type)
+    the mesh's device type (a CUDA tensor is never passed to gloo).  A mesh
+    of meta tensors (the dry run, which runs nothing) takes the ``"fake"``
+    backend and no other; a mesh of a real device never takes it."""
+    want = ("fake" if mesh.device_type == "meta"
+            else GROUP_BACKEND.get(mesh.device_type))
     if want is None:
         raise ValueError(f"no process-group backend for device type "
                          f"{mesh.device_type!r}")

@@ -1,12 +1,19 @@
-"""Markdown reports of the port's saved JSON artifacts: the screening-rule
-sweep (paper Fig. 2/3 layout), the static-analysis gate and the
-observability bench.
+"""Markdown reports of the port's saved JSON artifacts: the dry-run tables,
+the screening-rule sweep (paper Fig. 2/3 layout), the static-analysis gate
+and the observability bench.
 
-Counterpart of ``repro/launch/report.py`` without its dry-run tables (the
-status matrix, the roofline and memory tables over compiled cells), which
-wait for the dry-run tooling.  Each renderer turns a saved payload into
-markdown, so :mod:`repro_torch.launch.reanalyze` can re-render it after a
-renderer change without re-running anything:
+Counterpart of ``repro/launch/report.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.report build/dryrun
+
+prints the dry run's markdown (:mod:`repro_torch.launch.dryrun`): the
+status matrix, the roofline tables of the single-pod and multi-pod meshes
+(three terms on the H100's peaks, bottleneck, useful-flops ratio, a note on
+what would move the dominant term) and the per-rank memory table, the
+reference's rows and figures; a reference cell JSON renders the same.
+Each other renderer turns a saved payload into markdown, so
+:mod:`repro_torch.launch.reanalyze` can re-render it after a renderer
+change without re-running anything:
 
 * :func:`render_sweep_markdown` — a ``benchmarks/sweep_rules.py`` payload
   (the ``BENCH_pr5.json`` schema);
@@ -25,12 +32,139 @@ the dispatch pass's device) add lines of their own.
 """
 from __future__ import annotations
 
+import glob
 import json
+import os
+import sys
 
 from ..obs.export import BENCH_SCHEMA
 
-__all__ = ["render_analysis_markdown", "render_obs_markdown",
-           "render_sweep_markdown"]
+__all__ = ["dryrun_matrix", "load", "main", "memory_table",
+           "render_analysis_markdown", "render_obs_markdown",
+           "render_sweep_markdown", "roofline_table"]
+
+
+# ---------------------------------------------------------------------------
+# Dry-run tables
+# ---------------------------------------------------------------------------
+
+
+def load(out_dir: str):
+    cells = []
+    for f in sorted(glob.glob(os.path.join(out_dir, "*.json"))):
+        with open(f) as fh:
+            cells.append(json.load(fh))
+    return cells
+
+
+def _fmt_t(x) -> str:
+    if x is None:
+        return "-"
+    if x >= 1.0:
+        return f"{x:.2f}s"
+    return f"{x * 1e3:.1f}ms"
+
+
+def _hint(cell) -> str:
+    r = cell.get("roofline") or {}
+    b = r.get("bottleneck")
+    kind = cell.get("kind")
+    if b == "memory":
+        if kind == "train":
+            return "less remat / fuse optimizer+cast to cut HBM traffic"
+        return "KV-cache layout + quantization to cut HBM reads"
+    if b == "collective":
+        return "re-shard to cut all-gathers; overlap collectives with compute"
+    return "already compute-bound; larger per-card tiles keep the tensor cores busy"
+
+
+def dryrun_matrix(cells):
+    print("\n### Dry-run status matrix (counted on 16x16=256 and "
+          "2x16x16=512 meshes)\n")
+    keyed = {}
+    for c in cells:
+        keyed[(c["arch"], c["shape"], c.get("multi_pod", False))] = c
+    archs = sorted({c["arch"] for c in cells})
+    shapes = ["train_4k", "prefill_32k", "decode_32k", "long_500k", "solve",
+              "fista+screen"]
+    shapes = [s for s in shapes
+              if any(c["shape"].startswith(s.split("+")[0]) or c["shape"] == s
+                     for c in cells)]
+    hdr = "| arch | " + " | ".join(
+        f"{s} (1pod/2pod)" for s in shapes) + " |"
+    print(hdr)
+    print("|" + "---|" * (len(shapes) + 1))
+    for a in archs:
+        row = [a]
+        for s in shapes:
+            marks = []
+            for mp in (False, True):
+                c = keyed.get((a, s, mp))
+                if c is None:
+                    cands = [v for (aa, ss, m), v in keyed.items()
+                             if aa == a and m == mp and ss.startswith(s[:5])]
+                    c = cands[0] if cands else None
+                if c is None:
+                    marks.append("·")
+                else:
+                    st = c.get("status")
+                    marks.append({"ok": "✓", "skipped": "skip",
+                                  "error": "✗", "timeout": "T"}.get(st, "?"))
+            row.append("/".join(marks))
+        print("| " + " | ".join(row) + " |")
+
+
+def roofline_table(cells, multi_pod=False):
+    title = "multi-pod (512 cards)" if multi_pod else "single-pod (256 cards)"
+    print(f"\n### Roofline on the H100 — {title}\n")
+    print("| arch | shape | t_compute | t_memory | t_collective | bound |"
+          " model/counted flops | roofline frac | next lever |")
+    print("|---|---|---|---|---|---|---|---|---|")
+    for c in cells:
+        if c.get("multi_pod") != multi_pod or c.get("status") != "ok":
+            continue
+        r = c.get("roofline")
+        if not r:
+            # sgl-paper cell stores one entry per kernel variant
+            subs = [k for k in c
+                    if isinstance(c.get(k), dict) and "roofline" in c[k]]
+            for sub in subs:
+                rr = c[sub]["roofline"]
+                print(f"| {c['arch']} | {sub} | "
+                      f"{_fmt_t(rr['t_compute_s'])} | "
+                      f"{_fmt_t(rr['t_memory_s'])} | "
+                      f"{_fmt_t(rr['t_collective_s'])} | "
+                      f"{rr['bottleneck']} | "
+                      f"{(rr.get('useful_flops_ratio') or 0):.3f} | "
+                      f"{rr['roofline_fraction']:.4f} | "
+                      f"{_hint({'roofline': rr, 'kind': 'solve'})} |")
+            continue
+        print(f"| {c['arch']} | {c['shape']} | "
+              f"{_fmt_t(r['t_compute_s'])} | {_fmt_t(r['t_memory_s'])} | "
+              f"{_fmt_t(r['t_collective_s'])} | {r['bottleneck']} | "
+              f"{(r.get('useful_flops_ratio') or 0):.3f} | "
+              f"{r['roofline_fraction']:.4f} | {_hint(c)} |")
+
+
+def _gib(x) -> str:
+    return "-" if x is None else f"{x / (1 << 30):.2f} GiB"
+
+
+def memory_table(cells):
+    print("\n### Per-rank memory (single-pod; arguments from the structs "
+          "and specs, temps and peak not counted on meta: -)\n")
+    print("| arch | shape | args | temps | peak |")
+    print("|---|---|---|---|---|")
+    for c in cells:
+        if c.get("multi_pod") or c.get("status") != "ok":
+            continue
+        m = c.get("memory")
+        if not m:
+            continue
+        print(f"| {c['arch']} | {c['shape']} | "
+              f"{_gib(m.get('argument_bytes') or 0)} | "
+              f"{_gib(m.get('temp_bytes'))} | "
+              f"{_gib(m.get('peak_bytes'))} |")
 
 
 # ---------------------------------------------------------------------------
@@ -353,3 +487,22 @@ def render_obs_markdown(payload: dict) -> str:
         out.append("```")
         out.append("")
     return "\n".join(out)
+
+
+def main(argv=None):
+    args = list(sys.argv[1:] if argv is None else argv)
+    out_dir = args[0] if args else "build/dryrun"
+    cells = load(out_dir)
+    ok = sum(1 for c in cells if c.get("status") == "ok")
+    sk = sum(1 for c in cells if c.get("status") == "skipped")
+    err = len(cells) - ok - sk
+    print(f"# Dry-run report: {ok} ok / {sk} skipped / {err} failed "
+          f"({len(cells)} cells)")
+    dryrun_matrix(cells)
+    roofline_table(cells, multi_pod=False)
+    roofline_table(cells, multi_pod=True)
+    memory_table(cells)
+
+
+if __name__ == "__main__":
+    main()

@@ -47,13 +47,20 @@ import torch
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..kernels._util import LaunchSpec, resolve_device
-from ..kernels.bcd_epoch import bcd_epoch_launch_spec
-from ..kernels.dual_norm import dual_norm_launch_spec, dual_norm_work
+from ..kernels.bcd_epoch import bcd_epoch_launch_spec, bcd_epoch_work
+from ..kernels.dual_norm import (
+    dual_norm_launch_spec,
+    dual_norm_work,
+    sgl_dual_norm_launch_spec,
+    sgl_dual_norm_work,
+)
 from ..kernels.screening_scores import (
     corr_launch_spec,
+    corr_work,
     screening_scores_launch_spec,
+    scores_work,
 )
-from ..kernels.sgl_prox import sgl_prox_launch_spec
+from ..kernels.sgl_prox import sgl_prox_launch_spec, sgl_prox_work
 from ..launch.roofline import achieved_vs_peak
 from . import metrics as obs_metrics
 from .export import device_label
@@ -106,6 +113,18 @@ def close_rel(args, got, want):
     return float(err.max()), bool((rel <= 1e-12).all())
 
 
+def close_rel_f32(args, got, want):
+    """1e-5 relative, elementwise, on every output (the Omega^D entry's
+    float instance: its terms and maxima in f32, as chip_smoke.py's f32
+    checks)."""
+    errs, ok = [], True
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        errs.append(float(err.max()))
+        ok = ok and bool((err <= 1e-5 * w.abs()).all())
+    return max(errs), ok
+
+
 def close_epochs(args, got, want):
     """E epochs of a nonexpansive prox-gradient map: the reductions'
     roundoff (~n u relative) does not grow beyond a small factor, so 1e-10
@@ -127,14 +146,17 @@ def close_prox(args, got, want):
 class TimingCase(NamedTuple):
     """One timed kernel.  ``build(scale, device)`` returns ``(fn, args,
     flops, bytes, spec)`` — ``fn(*args)`` is the dispatch wrapper the solver
-    calls and ``spec`` the :class:`LaunchSpec` of its kernel's launch;
+    calls, ``flops`` and ``bytes`` its kernel module's work model and
+    ``spec`` the :class:`LaunchSpec` of its kernel's launch;
     ``close(args, got, want) -> (max_abs_err, ok)`` compares its outputs
-    with the plain version's."""
+    with the plain version's; ``dtype`` is the type whose peak rate the
+    operations divide by."""
 
     name: str
     build: Callable[[str, torch.device], Tuple[Callable, tuple, float, float,
                                                 LaunchSpec]]
     close: Callable[[tuple, tuple, tuple], Tuple[float, bool]]
+    dtype: str = "float64"
 
 
 def _rng():
@@ -154,9 +176,7 @@ def _build_corr(scale: str, device):
     r = _rng()
     Xt = _f64(r.standard_normal((p, n)), device)
     theta = _f64(r.standard_normal(n), device)
-    # matvec: 2 flops per (p, n) cell; traffic: design + vector + result
-    flops = 2.0 * p * n
-    bts = 8.0 * (p * n + n + p)
+    flops, bts = corr_work(p, n)
     return (kops.screening_corr, (Xt, theta), flops, bts,
             corr_launch_spec(p, n, 1))
 
@@ -166,9 +186,7 @@ def _build_scores(scale: str, device):
     r = _rng()
     Xt = _f64(r.standard_normal((p, n)), device)
     theta = _f64(r.standard_normal(n), device)
-    # corr matvec + fused soft-threshold square (~4 flops/row)
-    flops = 2.0 * p * n + 4.0 * p
-    bts = 8.0 * (p * n + n + 2 * p)
+    flops, bts = scores_work(p, n)
     return (kops.screening_scores, (Xt, theta, 0.3), flops, bts,
             screening_scores_launch_spec(p, n))
 
@@ -180,8 +198,6 @@ def _build_dual_norm(scale: str, device):
     x = _f64(r.standard_normal((G, ng)), device)
     alpha = _f64(np.full(G, 0.7), device)
     R = _f64(np.full(G, 0.3), device)
-    # the function's own work: the sorted form's operations, x read and
-    # alpha, R, Lambda moved once
     flops, bts = dual_norm_work(G, ng)
     return (kops.dual_norm_groups, (x, alpha, R), flops, bts,
             dual_norm_launch_spec(G, ng))
@@ -194,11 +210,27 @@ def _build_prox(scale: str, device):
     beta = _f64(r.standard_normal((G, ng)), device)
     step = _f64(np.full(G, 0.05), device)
     w = _f64(np.ones(G), device)
-    # two-level prox: ~6 flops per feature (shrink + norm + group scale)
-    flops = 6.0 * G * ng
-    bts = 8.0 * (2 * G * ng + 2 * G)
+    flops, bts = sgl_prox_work(G, ng)
     return (kops.sgl_prox, (beta, step, w, 0.3, 1.0), flops, bts,
             sgl_prox_launch_spec(G, ng))
+
+
+def _build_omega_f32(scale: str, device, G: int, ng: int):
+    """The Omega^D entry's float instance (the mesh strategy's f32 rounds)
+    over G groups of ng at B = 1: correlations with group scales spread
+    over two decades, tau = 0.4, the paper's weights sqrt(ng)."""
+    G = 512 if scale == "smoke" else G
+    r = _rng()
+    corr = (r.standard_normal((G, ng))
+            * 10.0 ** r.uniform(-2.0, 0.0, (G, 1)))
+    corr = torch.as_tensor(corr, dtype=torch.float32).to(device)
+    w = torch.full((G,), float(np.sqrt(ng)), dtype=torch.float32,
+                   device=device)
+    fn = lambda c, tau, w: kops.sgl_dual_norm_terms_fused(  # noqa: E731
+        c, tau, w, None, 1)
+    flops, bts = sgl_dual_norm_work(G, ng, 1, 4)
+    return fn, (corr, 0.4, w), flops, bts, sgl_dual_norm_launch_spec(
+        G, ng, 1, 4)
 
 
 def _bcd_geom(scale: str, bucket: bool):
@@ -222,10 +254,7 @@ def _build_bcd(scale: str, device, bucket: bool):
     resid = _f64(_rng().standard_normal((B, n)), device)
     fn = lambda *a: kops.bcd_epochs_fused(*a, n_epochs=E)  # noqa: E731
     args = (Xt, Lg, w, fmask, beta, resid, 0.3, lam_b)
-    # per epoch, group: corr (2·n·ng) + residual rank-1 update (2·n·ng)
-    flops = 4.0 * E * B * Gb * n * ng
-    # design streamed once per epoch; state read+written once
-    bts = 8.0 * (E * Gb * n * ng + 2 * (B * Gb * ng + B * n))
+    flops, bts = bcd_epoch_work(B, Gb, n, ng, E)
     return fn, args, flops, bts, bcd_epoch_launch_spec(B, Gb, n, ng)[0]
 
 
@@ -241,14 +270,13 @@ def _build_bcd_logistic(scale: str, device):
                                      n_epochs=E, y=y)
 
     args = (Xt, Lg, w, fmask, beta, z, 0.3, lam_b, y)
-    # lsq-epoch work + sigmoid/gradient on the carry (~8 flops per sample)
-    flops = 4.0 * E * B * Gb * n * ng + 8.0 * E * B * Gb * n
-    bts = 8.0 * (E * Gb * n * ng + 2 * (B * Gb * ng + B * n) + n)
+    flops, bts = bcd_epoch_work(B, Gb, n, ng, E, "logistic")
     return (fn, args, flops, bts,
             bcd_epoch_launch_spec(B, Gb, n, ng, "logistic")[0])
 
 
-#: One timed case per reference case (``repro/obs/timing.py``), same names.
+#: One timed case per reference case (``repro/obs/timing.py``), same names,
+#: and the f32 Omega^D cases.
 CASES: Tuple[TimingCase, ...] = (
     TimingCase("bcd_epoch/bucket",
                lambda s, d: _build_bcd(s, d, bucket=True), close_epochs),
@@ -260,6 +288,15 @@ CASES: Tuple[TimingCase, ...] = (
     TimingCase("screening_corr/default", _build_corr, close_dot),
     TimingCase("dual_norm/paper-ng8", _build_dual_norm, close_rel),
     TimingCase("sgl_prox/paper-ng8", _build_prox, close_prox),
+    # Beyond the reference's cases: the Omega^D entry's float instance at
+    # the climate width (10,512 groups of 7) and at one rank's shard of the
+    # sgl-paper cell on the 256-rank mesh (16,384 groups of 8).
+    TimingCase("dual_norm/omega-climate-f32",
+               lambda s, d: _build_omega_f32(s, d, 10_512, 7), close_rel_f32,
+               "float32"),
+    TimingCase("dual_norm/omega-shard-f32",
+               lambda s, d: _build_omega_f32(s, d, 16_384, 8), close_rel_f32,
+               "float32"),
 )
 
 
@@ -374,10 +411,12 @@ def measure_kernels(scale: str = "smoke", warmup: int = 2, repeat: int = 5,
             "launch": {"kernel": spec.name, "grid": list(spec.grid),
                        "block": list(spec.block),
                        "smem_bytes": spec.smem_bytes},
-            "achieved": (achieved_vs_peak(flops, bts, t["median_s"])
+            "achieved": (achieved_vs_peak(flops, bts, t["median_s"],
+                                          dtype=case.dtype)
                          if on_card else None),
             "graph_s": g,
-            "achieved_graph": (achieved_vs_peak(flops, bts, g)
+            "achieved_graph": (achieved_vs_peak(flops, bts, g,
+                                                dtype=case.dtype)
                                if on_card else None),
             "host_bound": t["median_s"] > 2.0 * g if on_card else None,
         }

@@ -1,0 +1,541 @@
+"""The dry run and its cost model (``repro_torch.launch.{roofline,specs,
+dryrun,report,reanalyze}``, the kernels' meta branches) against the JAX
+package's, on the CPU.
+
+The reference's dry run runs in subprocesses, four cells, each with a 180 s
+limit: sgl-paper on 1 pod and on 2, demo train_4k and the skipped demo
+long_500k, both on 1 pod.  The port's whole sweep (``--all``, 10 cells) runs
+once, also in subprocesses.
+
+* sgl-paper: ``chips`` and ``lambda_batch`` equal; each function's
+  all-reduce bytes equal; ``model_flops`` equal; the counted contraction
+  FLOPs (``counts["matmul_flops"]`` x chips) within 1e-6 relative of the
+  reference's FLOPs, which count dots only; the kernels' own work (the
+  prox's, the dual norm's) is counted beside them and adds under 1e-3;
+  ``fista`` and ``screen`` bytes and ``argument_bytes`` within 1%.  The
+  bf16 functions differ, recorded below: the port casts the bf16 design to
+  f32 twice per step (``solver_dist._flat``) and its batched state is f32.
+* demo: ``params``, ``active_params`` and ``model_flops`` equal in every
+  cell (the reference's rule on its own parameter shapes, in process); the
+  skipped cell's status and reason equal; the counted FLOPs and bytes
+  recorded beside the reference's.
+* The three tables render the same rows and figures from one reference
+  payload in both packages (the hint column says "tensor cores" for
+  "MXU").
+"""
+import contextlib
+import io
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import get as jget
+from repro.configs.base import SHAPES_BY_NAME as J_SHAPES
+from repro.distributed.solver_dist import make_dist_step as j_make_dist_step
+from repro.launch import mesh as jmeshlib
+from repro.launch import report as jreport
+from repro.launch import roofline as jrl
+from repro.models import build as jbuild
+from repro_torch.configs.base import LM_SHAPES
+from repro_torch.distributed.solver_dist import make_dist_step
+from repro_torch.kernels import _util, ops
+from repro_torch.kernels.bcd_epoch import bcd_epoch_work
+from repro_torch.kernels.dual_norm import dual_norm_work, sgl_dual_norm_work
+from repro_torch.kernels.screening_scores import corr_work, scores_work
+from repro_torch.kernels.sgl_prox import sgl_prox_work
+from repro_torch.launch import dryrun, reanalyze, report
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import roofline as rl
+
+ROOT = Path(__file__).resolve().parents[1]
+CELL_TIMEOUT = 180
+FUNCS = ("fista", "fista_bf16", "fista_batch256_bf16", "screen")
+# Recorded differences of the bf16 functions (port bytes / reference bytes,
+# argument bytes likewise), held within 1%: the port counts two f32 casts
+# of the bf16 design per step and its B = 256 state in f32.
+BF16_BYTES = {(False, "fista_bf16"): 2.4996, (True, "fista_bf16"): 2.4993,
+              (False, "fista_batch256_bf16"): 3.2761,
+              (True, "fista_batch256_bf16"): 3.1289}
+BF16_ARGS = {False: 1.0448, True: 1.0857}
+# demo: the port's counted FLOPs and bytes against the reference's (XLA on
+# the CPU counts the partitioned step, the port the whole step's aten ops).
+DEMO_TRAIN_RATIO = {"flops": 0.0239, "bytes": 0.0189}
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                JAX_PLATFORMS="cpu")
+
+
+REF_CELLS = {"sgl_single": ("sgl-paper", "solve", False),
+             "sgl_multi": ("sgl-paper", "solve", True),
+             "demo_train_4k": ("demo", "train_4k", False),
+             "demo_long_500k": ("demo", "long_500k", False)}
+
+
+@pytest.fixture(scope="module")
+def ref_cells(tmp_path_factory):
+    """The reference's dry run of four cells, each in its own subprocess
+    (run at once), each within CELL_TIMEOUT seconds."""
+    out = tmp_path_factory.mktemp("ref_dryrun")
+    procs = {}
+    for tag, (arch, shape, mp) in REF_CELLS.items():
+        cmd = [sys.executable, "-m", "repro.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--json-out", str(out / f"{tag}.json"),
+               "--quiet"] + (["--multi-pod"] if mp else [])
+        procs[tag] = subprocess.Popen(cmd, env=_env(), cwd=ROOT,
+                                      stdout=subprocess.DEVNULL,
+                                      stderr=subprocess.PIPE)
+    cells = {}
+    for tag, proc in procs.items():
+        _, err = proc.communicate(timeout=CELL_TIMEOUT)
+        assert proc.returncode == 0, err.decode()[-2000:]
+        cells[tag] = json.loads((out / f"{tag}.json").read_text())
+    return out, cells
+
+
+@pytest.fixture(scope="module")
+def port_dir(tmp_path_factory):
+    """The port's sweep, ``python -m repro_torch.launch.dryrun --all``."""
+    out = tmp_path_factory.mktemp("port_dryrun")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(out), "--timeout", str(CELL_TIMEOUT)],
+        env=_env(), cwd=ROOT, capture_output=True, text=True,
+        timeout=10 * CELL_TIMEOUT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return out
+
+
+def _cell(port_dir, arch, shape, mp):
+    return json.loads((port_dir / f"{arch}_{shape}_"
+                       f"{'multi' if mp else 'single'}.json").read_text())
+
+
+def test_sweep_writes_all_ten_cells(port_dir):
+    cells = report.load(str(port_dir))
+    assert len(cells) == 10
+    status = {(c["arch"], c["multi_pod"], c["shape"]): c["status"]
+              for c in cells}
+    assert sorted(status.values()) == ["ok"] * 8 + ["skipped"] * 2
+    for mp in (False, True):
+        assert status["demo", mp, "long_500k"] == "skipped"
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                           str(port_dir)], env=_env(), cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout
+    assert out.startswith("# Dry-run report: 8 ok / 2 skipped / 0 failed")
+    for heading in ("Dry-run status matrix", "single-pod (256 cards)",
+                    "multi-pod (512 cards)", "Per-rank memory"):
+        assert heading in out
+
+
+@pytest.mark.parametrize("mp", [False, True], ids=["single", "multi"])
+def test_sgl_cell_matches_reference(ref_cells, port_dir, mp):
+    ref = ref_cells[1]["sgl_multi" if mp else "sgl_single"]
+    got = _cell(port_dir, "sgl-paper", "solve", mp)
+    assert got["status"] == "ok" and got["shape"] == ref["shape"]
+    assert got["chips"] == ref["chips"] == (512 if mp else 256)
+    assert got["lambda_batch"] == ref["lambda_batch"] == 256
+    for f in FUNCS:
+        g, r = got[f], ref[f]
+        assert g["collectives"] == r["collectives"], f
+        gr, rr = g["roofline"], r["roofline"]
+        assert gr["model_flops"] == rr["model_flops"], f
+        assert gr["chips"] == rr["chips"]
+        matmul = g["counts"]["matmul_flops"] * got["chips"]
+        assert matmul == pytest.approx(rr["flops"], rel=1e-6), f
+        # the kernels' elementwise work, counted beside the contractions
+        assert 0 < g["counts"]["kernel_flops"] * got["chips"] \
+            < 1e-3 * rr["flops"], f
+        assert sum(g["counts"]["launches"].values()) == 1, f
+        ratio = gr["bytes_accessed"] / rr["bytes_accessed"]
+        args = g["memory"]["argument_bytes"] / r["memory"]["argument_bytes"]
+        if f in ("fista", "screen"):
+            assert ratio == pytest.approx(1.0, rel=0.01), f
+            assert args == pytest.approx(1.0, rel=0.01), f
+        else:
+            assert ratio == pytest.approx(BF16_BYTES[mp, f], rel=0.01), f
+            want = 1.0 if f == "fista_bf16" else BF16_ARGS[mp]
+            assert args == pytest.approx(want, rel=0.01), f
+        assert g["memory"]["temp_bytes"] is None
+
+
+def test_sgl_cell_launches_its_kernels(port_dir):
+    got = _cell(port_dir, "sgl-paper", "solve", False)
+    assert got["fista"]["counts"]["launches"] == {"sgl_prox": 1}
+    assert got["fista_batch256_bf16"]["counts"]["launches"] == {
+        "sgl_prox": 1}
+    assert got["screen"]["counts"]["launches"] == {"dual_norm": 1}
+    # one rank's shard: 16,384 rows by 16,384 groups of 8; the prox's work
+    # model over it, f32
+    flops, nbytes = sgl_prox_work(16_384, 8, 4)
+    assert got["fista"]["counts"]["kernel_flops"] == flops
+    assert got["fista"]["counts"]["kernel_bytes"] == nbytes
+
+
+@pytest.mark.parametrize("shape", [s.name for s in LM_SHAPES])
+@pytest.mark.parametrize("mp", [False, True], ids=["single", "multi"])
+def test_demo_cells_params_and_model_flops(port_dir, shape, mp):
+    """params, active_params and model_flops as the reference's rule gives
+    them on its own parameter shapes (``jax.eval_shape``, no compile)."""
+    got = _cell(port_dir, "demo", shape, mp)
+    if got["status"] == "skipped":
+        assert shape == "long_500k"
+        return
+    jcfg = jget("demo")
+    structs = jax.eval_shape(
+        lambda k: jbuild(jcfg).init_params(k, dtype=jnp.bfloat16),
+        jax.random.PRNGKey(0))
+    sh = J_SHAPES[shape]
+    tokens = (sh.global_batch if sh.kind == "decode"
+              else sh.global_batch * sh.seq_len)
+    assert got["params"] == jrl.count_params(structs) == 106_880
+    assert got["active_params"] == jrl.active_params(jcfg, structs)
+    assert got["roofline"]["model_flops"] == jrl.model_flops(
+        jcfg, structs, sh.kind, tokens)
+    assert got["collectives"] is None and "8c" in got["collectives_note"]
+    assert got["roofline"]["dtype"] == "bfloat16"
+
+
+def test_demo_cells_match_reference_cells(ref_cells, port_dir):
+    refs = ref_cells[1]
+    got = _cell(port_dir, "demo", "long_500k", False)
+    want = refs["demo_long_500k"]
+    assert (got["status"], got["reason"]) == (want["status"], want["reason"])
+    got, want = _cell(port_dir, "demo", "train_4k", False), \
+        refs["demo_train_4k"]
+    for k in ("params", "active_params", "chips", "kind"):
+        assert got[k] == want[k], k
+    assert got["roofline"]["model_flops"] == want["roofline"]["model_flops"]
+    # each rank's share of the arguments, from the structs and the specs
+    assert got["memory"]["argument_bytes"] == \
+        want["memory"]["argument_bytes"]
+    # recorded: the counted FLOPs and bytes beside the reference's
+    assert got["roofline"]["flops"] / want["roofline"]["flops"] == \
+        pytest.approx(DEMO_TRAIN_RATIO["flops"], rel=0.05)
+    assert got["roofline"]["bytes_accessed"] / \
+        want["roofline"]["bytes_accessed"] == \
+        pytest.approx(DEMO_TRAIN_RATIO["bytes"], rel=0.05)
+
+
+def _rows(render, cells, *a):
+    """The data rows a renderer prints (not its headings)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        render(cells, *a)
+    return [line for line in buf.getvalue().splitlines()
+            if line.startswith("| ") and not line.startswith("| arch")]
+
+
+def test_tables_render_the_references_rows(ref_cells):
+    cells = jreport.load(str(ref_cells[0]))
+    assert report.load(str(ref_cells[0])) == cells
+    for name, args in (("dryrun_matrix", ()), ("roofline_table", (False,)),
+                       ("roofline_table", (True,)), ("memory_table", ())):
+        want = _rows(getattr(jreport, name), cells, *args)
+        got = _rows(getattr(report, name), cells, *args)
+        if name == "roofline_table":
+            # the last column, the hint, names the card's units
+            want = [r.rsplit(" | ", 1)[0] for r in want]
+            got = [r.rsplit(" | ", 1)[0] for r in got]
+        assert got == want and got, name
+
+
+def test_roofline_terms_and_bottleneck():
+    """The reference's test on the H100's peaks: bf16 on the tensor cores,
+    HBM3, NVLink each way."""
+    r = rl.Roofline(flops=989e12 * 256, bytes_accessed=3.35e12,
+                    collective_bytes=0.0, chips=256,
+                    model_flops=989e12 * 128)
+    assert r.t_compute == pytest.approx(1.0)
+    assert r.t_memory == pytest.approx(1.0 / 256)
+    assert r.bottleneck == "compute"
+    assert r.roofline_fraction == pytest.approx(0.5)
+    c = rl.Roofline(flops=0.0, bytes_accessed=0.0,
+                    collective_bytes=450e9 * 2 * 4, chips=4, dtype="float32")
+    assert c.t_collective == pytest.approx(2.0) and c.bottleneck == \
+        "collective"
+    f32 = rl.Roofline(flops=67e12, bytes_accessed=0.0, collective_bytes=0.0,
+                      chips=1, dtype="float32")
+    assert f32.t_compute == pytest.approx(1.0)
+    assert set(jrl.Roofline(1.0, 1.0, 1.0, 1, 1.0).as_dict()) <= set(
+        f32.as_dict())
+    assert rl.peak_flops("bfloat16") == rl.peak_flops(torch.bfloat16)
+    with pytest.raises(ValueError):
+        rl.peak_flops("float16")
+
+
+def test_achieved_vs_peak_takes_chips_and_collectives():
+    a = rl.achieved_vs_peak(2e9, 2 * 3.35e9, 2e-3, chips=2)
+    assert a["model_t_memory_s"] == pytest.approx(1e-3)
+    assert a["achieved_vs_model"] == pytest.approx(0.5)
+    c = rl.achieved_vs_peak(1.0, 1.0, 1.0, chips=2,
+                            collective_bytes=2 * 450e9)
+    assert c["model_bottleneck"] == "collective"
+    assert c["model_t_collective_s"] == pytest.approx(1.0)
+
+
+def test_reanalyze_cell_rebuilds_the_roofline(port_dir, ref_cells, tmp_path):
+    for arch, shape in (("sgl-paper", "solve"), ("demo", "train_4k")):
+        src = port_dir / f"{arch}_{shape}_single.json"
+        dst = tmp_path / src.name
+        shutil.copy(src, dst)
+        want = json.loads(src.read_text())
+        broken = json.loads(src.read_text())
+        for entry in ([broken] if "roofline" in broken else
+                      [broken[f] for f in FUNCS]):
+            entry["roofline"]["t_memory_s"] = -1.0
+            entry["roofline"]["bottleneck"] = "nowhere"
+        dst.write_text(json.dumps(broken))
+        assert reanalyze.reanalyze_cell(str(dst))
+        assert json.loads(dst.read_text()) == want
+    # no counts: a reference cell, a skipped cell
+    ref_copy = tmp_path / "ref.json"
+    shutil.copy(ref_cells[0] / "sgl_single.json", ref_copy)
+    before = ref_copy.read_text()
+    assert not reanalyze.reanalyze_cell(str(ref_copy))
+    assert ref_copy.read_text() == before
+    skipped = tmp_path / "skip.json"
+    shutil.copy(port_dir / "demo_long_500k_single.json", skipped)
+    assert not reanalyze.reanalyze_cell(str(skipped))
+    reanalyze.main([str(tmp_path)])
+
+
+@pytest.fixture
+def no_default_group():
+    """A default process group left behind by an earlier test in this
+    worker would stand in the dry run's way: start from none."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield
+    assert not dist.is_initialized()
+
+
+def test_run_cell_leaves_no_process_group(no_default_group):
+    out = dryrun.run_cell("sgl-paper", "solve", False, quiet=True)
+    assert out["status"] == "ok" and out["chips"] == 256
+    assert not dist.is_initialized()
+    with pytest.raises(KeyError):
+        dryrun.run_cell("demo", "no_such_shape", True, quiet=True)
+    assert not dist.is_initialized()
+
+
+def test_fake_group_is_for_meta_meshes_only(no_default_group):
+    with dryrun.fake_world(4):
+        meshlib.check_group_backends(
+            meshlib.DeviceMesh("meta", torch.arange(4).reshape(2, 2),
+                               mesh_dim_names=("data", "model")))
+        cpu = meshlib.DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                                 mesh_dim_names=("data", "model"))
+        with pytest.raises(ValueError, match="gloo"):
+            meshlib.check_group_backends(cpu)
+        with pytest.raises(ValueError):
+            make_dist_step(cpu, tau=0.3)
+    assert not dist.is_initialized()
+
+
+def test_count_step_counts_products_casts_and_collectives(no_default_group):
+    meta = torch.device("meta")
+    A = torch.empty((300, 70), device=meta)
+    x = torch.empty((70,), device=meta)
+    c = rl.count_step(torch.mv, A, x)
+    assert c["matmul_flops"] == 2 * 300 * 70 and c["flops"] == 2 * 300 * 70
+    assert c["bytes_accessed"] == 4 * (300 * 70 + 70 + 300)
+    c = rl.count_step(lambda: A.to(torch.bfloat16).T[1:].unsqueeze(0))
+    assert c["flops"] == 0 and c["ops"] == 1          # the cast; views: 0
+    assert c["bytes_accessed"] == (4 + 2) * 300 * 70
+    c = rl.count_step(lambda: A.T.reshape(-1))        # a copy: read, write
+    assert c["ops"] == 1
+    assert c["bytes_accessed"] == 2 * 4 * 300 * 70
+    c = rl.count_step(lambda: torch.empty((5, 5), device=meta))
+    assert c["bytes_accessed"] == 0 and c["launches"] == {}
+    with dryrun.fake_world(8):
+        g = dist.new_group(list(range(8)))
+        c = rl.count_step(lambda: dist.all_reduce(x, group=g))
+    assert c["coll_all-reduce"] == 70 * 4 and c["collective_bytes"] == 280
+
+
+def _meta_calls():
+    m = torch.device("meta")
+    f64 = dict(dtype=torch.float64, device=m)
+    f32 = dict(dtype=torch.float32, device=m)
+    e = torch.empty
+    return {
+        "screening_corr": (lambda: ops.screening_corr(e((64, 10), **f64),
+                                                      e((10,), **f64)),
+                           "corr", corr_work(64, 10), [(64,)]),
+        "screening_corr_batched": (
+            lambda: ops.screening_corr_batched(e((64, 10), **f64),
+                                               e((3, 10), **f64)),
+            "corr", corr_work(64, 10, 3), [(3, 64)]),
+        "screening_scores": (
+            lambda: ops.screening_scores(e((64, 10), **f64), e((10,), **f64),
+                                         0.3),
+            "screening_scores", scores_work(64, 10), [(64,), (64,)]),
+        "dual_norm_groups": (
+            lambda: ops.dual_norm_groups(e((9, 7), **f64), e((9,), **f64),
+                                         e((9,), **f64)),
+            "dual_norm", dual_norm_work(9, 7), [(9,)]),
+        "sgl_dual_norm_terms_fused": (
+            lambda: ops.sgl_dual_norm_terms_fused(e((18, 7), **f32), 0.4,
+                                                  e((9,), **f32), None, 2),
+            "dual_norm", sgl_dual_norm_work(9, 7, 2, 4), [(18,), (2,)]),
+        "bcd_epochs_fused": (
+            lambda: ops.bcd_epochs_fused(
+                e((5, 12, 4), **f64), e((5,), **f64), e((5,), **f64),
+                e((2, 5, 4), **f64), e((2, 5, 4), **f64), e((2, 12), **f64),
+                0.3, e((2,), **f64), 3),
+            "bcd_epoch", bcd_epoch_work(2, 5, 12, 4, 3), [(2, 5, 4), (2, 12)]),
+        "sgl_prox": (lambda: ops.sgl_prox(e((9, 7), **f32), e((9,), **f32),
+                                          e((9,), **f32), 0.3, 1.0),
+                     "sgl_prox", sgl_prox_work(9, 7, 4), [(9, 7)]),
+        "sgl_prox_batched": (
+            lambda: ops.sgl_prox_batched(e((4, 9, 7), **f64), e((4,), **f64),
+                                         2.0, e((9,), **f64), 0.3),
+            "sgl_prox", sgl_prox_work(9, 7, 8, 4), [(4, 9, 7)]),
+    }
+
+
+@pytest.mark.parametrize("wrapper", list(_meta_calls()))
+def test_meta_tensor_without_a_count_raises(wrapper):
+    call = _meta_calls()[wrapper][0]
+    with pytest.raises(RuntimeError, match="meta tensor"):
+        call()
+
+
+@pytest.mark.parametrize("wrapper", list(_meta_calls()))
+def test_meta_branch_counts_one_launch_of_its_work_model(wrapper):
+    call, kernel, (flops, nbytes), shapes = _meta_calls()[wrapper]
+    before = _util.launch_counts()
+    with _util.meta_count() as work:
+        out = call()
+    outs = out if isinstance(out, tuple) else (out,)
+    assert [tuple(o.shape) for o in outs] == shapes
+    assert all(o.device.type == "meta" for o in outs)
+    assert work.launches == {kernel: 1}
+    assert (work.flops, work.bytes) == (flops, nbytes)
+    assert _util.launch_counts() == before       # no real launch counted
+
+
+def test_meta_branch_refuses_what_the_kernel_refuses():
+    e = torch.empty((9, 7), dtype=torch.bfloat16, device="meta")
+    with _util.meta_count(), pytest.raises(TypeError):
+        ops.sgl_prox(e, e[:, 0], e[:, 0], 0.3, 1.0)
+
+
+def test_work_models_keep_the_harness_values():
+    """The timing harness's formulas, now the kernel modules' (values at
+    the harness's paper shapes)."""
+    assert sgl_prox_work(4096, 8) == (6.0 * 4096 * 8,
+                                      8.0 * (2 * 4096 * 8 + 2 * 4096))
+    assert corr_work(4096, 1024) == (2.0 * 4096 * 1024,
+                                     8.0 * (4096 * 1024 + 1024 + 4096))
+    assert scores_work(4096, 1024) == (2.0 * 4096 * 1024 + 4.0 * 4096,
+                                       8.0 * (4096 * 1024 + 1024 + 2 * 4096))
+    flops, nbytes = dual_norm_work(4096, 8)
+    assert sgl_dual_norm_work(4096, 8) == (flops,
+                                           8.0 * (4096 * 8 + 2 * 4096 + 1))
+
+
+# ---------------------------------------------------------------------------
+# The mesh step on a bf16 design (both packages promote the iterate to f32)
+# ---------------------------------------------------------------------------
+
+STEPS = 21
+BF16_STEP_REL = 1e-5   # of the largest entry: the same bf16 design, f32
+#                        products over 40 rows summed in another order,
+#                        through 21 nonexpansive prox-gradient steps
+
+
+@pytest.fixture(scope="module")
+def bf16_problem():
+    from repro.data.synthetic import make_synthetic
+
+    X, y, _, sizes = make_synthetic(n=40, p=160, n_groups=16, gamma1=3,
+                                    gamma2=3, seed=3, dtype=np.float32)
+    n, p = X.shape
+    G = len(sizes)
+    Xg = X.reshape(n, G, p // G).astype(np.float32)
+    w = np.full(G, np.sqrt(p // G), np.float32)
+    L = float(np.linalg.norm(X, 2) ** 2)
+    lam_max = float(np.abs(X.T @ y).max())
+    return Xg, y.astype(np.float32), w, L, lam_max
+
+
+@pytest.fixture(scope="module")
+def bf16_steps():
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = meshlib.make_test_mesh("cpu")
+    yield (j_make_dist_step(jmeshlib.make_test_mesh(), tau=0.3),
+           make_dist_step(mesh, tau=0.3, dtype=torch.bfloat16))
+    dist.destroy_process_group()
+
+
+def test_fista_on_a_bf16_design_matches_reference(bf16_problem, bf16_steps):
+    Xg, y, w, L, lam_max = bf16_problem
+    jk, tk = bf16_steps
+    Xj, Xt = jnp.asarray(Xg, jnp.bfloat16), torch.as_tensor(Xg).bfloat16()
+    G, ng = Xg.shape[1:]
+    mask = np.ones((G, ng), np.float32)
+    lam = 0.1 * lam_max
+    jb = jz = jnp.zeros((G, ng), jnp.float32)
+    jt = 1.0
+    b = z = torch.zeros((G, ng))
+    t = 1.0
+    jf = jax.jit(jk.fista)
+    for _ in range(STEPS):
+        jb, jz, jt = jf(Xj, jnp.asarray(y), jb, jz, jnp.asarray(mask),
+                        jnp.asarray(w), jnp.asarray(jt, jnp.float32),
+                        jnp.asarray(lam, jnp.float32),
+                        jnp.asarray(L, jnp.float32))
+        b, z, t = tk.fista(Xt, torch.as_tensor(y), b, z,
+                           torch.as_tensor(mask), torch.as_tensor(w), t, lam,
+                           L)
+    assert b.dtype == torch.float32 and jb.dtype == jnp.float32
+    want = np.asarray(jb)
+    assert np.abs(b.numpy() - want).max() <= BF16_STEP_REL * np.abs(
+        want).max()
+    assert (want == 0).any() and (want != 0).any()
+
+
+def test_fista_batch_on_a_bf16_design_matches_reference(bf16_problem,
+                                                        bf16_steps):
+    """The reference's dry-run inputs: a bf16 state, promoted to f32 by the
+    first step in both packages."""
+    Xg, y, w, L, lam_max = bf16_problem
+    jk, tk = bf16_steps
+    Xj, Xt = jnp.asarray(Xg, jnp.bfloat16), torch.as_tensor(Xg).bfloat16()
+    G, ng = Xg.shape[1:]
+    lams = np.array([0.5, 0.2, 0.1, 0.05], np.float32) * lam_max
+    B = len(lams)
+    mask = np.ones((B, G, ng), np.float32)
+    jb = jz = jnp.zeros((B, G, ng), jnp.bfloat16)
+    jt = jnp.ones((B,), jnp.float32)
+    b = z = torch.zeros((B, G, ng), dtype=torch.bfloat16)
+    t = torch.ones(B)
+    jf = jax.jit(jk.fista_batch)
+    for i in range(STEPS):
+        jb, jz, jt = jf(Xj, jnp.asarray(y), jb, jz, jnp.asarray(mask),
+                        jnp.asarray(w), jt, jnp.asarray(lams),
+                        jnp.asarray(L, jnp.float32))
+        b, z, t = tk.fista_batch(Xt, torch.as_tensor(y), b, z,
+                                 torch.as_tensor(mask), torch.as_tensor(w), t,
+                                 torch.as_tensor(lams), L)
+        if i == 0:
+            assert b.dtype == torch.float32 and jb.dtype == jnp.float32
+    want = np.asarray(jb)
+    assert np.abs(b.numpy() - want).max() <= BF16_STEP_REL * np.abs(
+        want).max()

@@ -898,3 +898,51 @@ def test_demo_train_step_on_the_card_matches_the_cpu(hopper):
                    for k in cpu])
     assert float(d.max()) <= 0.5
     assert int((d > 1e-3).sum()) <= 2e-4 * d.numel()
+
+
+# ---------------------------------------------------------------------------
+# The dry run's meta branches against the card: what a wrapper counts on a
+# meta tensor is what it launches on the card
+# ---------------------------------------------------------------------------
+
+def _shard_calls(dev):
+    """The three launches of the dry run's sgl-paper shard (16,384 groups
+    of 8, f32): the prox, the batched prox at B = 256, the Omega^D."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    f32 = dict(dtype=torch.float32)
+
+    def on(t):
+        return t.to(dev)
+
+    beta = on(torch.randn((16_384, 8), generator=g, **f32))
+    betab = on(torch.randn((256, 16_384, 8), generator=g, **f32))
+    step = on(torch.full((16_384,), 0.05, **f32))
+    w = on(torch.full((16_384,), 8 ** 0.5, **f32))
+    lam_b = on(torch.linspace(1.0, 0.1, 256, **f32))
+    return {
+        "sgl_prox": lambda: ops.sgl_prox(beta, step, w, 0.4, 1.0),
+        "sgl_prox_batched": lambda: ops.sgl_prox_batched(betab, lam_b, 15.0,
+                                                         w, 0.4),
+        "sgl_dual_norm_terms_fused": lambda: ops.sgl_dual_norm_terms_fused(
+            beta, 0.4, w, None, 1),
+    }
+
+
+@pytest.mark.parametrize("wrapper", ["sgl_prox", "sgl_prox_batched",
+                                     "sgl_dual_norm_terms_fused"])
+def test_meta_count_is_the_cards_launch(hopper, wrapper):
+    with _util.meta_count() as work:
+        meta = _shard_calls(torch.device("meta"))[wrapper]()
+    with ops.audit_scope() as audit:
+        got = _shard_calls(hopper)[wrapper]()
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in audit.launches.items() if v}
+    assert launches == work.launches
+    metas = meta if isinstance(meta, tuple) else (meta,)
+    gots = got if isinstance(got, tuple) else (got,)
+    assert [(m.shape, m.dtype) for m in metas] == [(o.shape, o.dtype)
+                                                    for o in gots]
+    want = _shard_calls(torch.device("cpu"))[wrapper]()
+    wants = want if isinstance(want, tuple) else (want,)
+    for o, w_ in zip(gots, wants):
+        torch.testing.assert_close(o.cpu(), w_, rtol=1e-5, atol=1e-5)

@@ -70,6 +70,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models, repro_torch.models.ssm\n"
         "import repro_torch.models.rglru, repro_torch.models.encdec\n"
         "import repro_torch.train, repro_torch.launch.train\n"
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
         "assert repro_torch.configs.get('sgl-paper').n_groups == 262_144\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"

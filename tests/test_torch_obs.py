@@ -418,7 +418,7 @@ def test_measure_kernels_smoke_on_cpu():
     rows = otiming.measure_kernels(scale="smoke", warmup=1, repeat=2,
                                    device="cpu")
     assert list(rows) == [c.name for c in otiming.CASES]
-    assert "sgl_prox/paper-ng8" in rows and len(rows) == 7
+    assert "sgl_prox/paper-ng8" in rows and len(rows) == 9
     for name, row in rows.items():
         assert row["device"] == "cpu" and row["achieved"] is None
         assert row["measured_s"] > 0 and row["min_s"] <= row["measured_s"]
