@@ -58,6 +58,13 @@ paths through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
   instance), held against the same solve with the plain backends on the
   card and on the CPU: the same support, each one's screened groups zero
   in the other's solution, the screened counts within one;
+* LM training across ranks (``launch.train.run_train(args, mesh=...)``,
+  the sharded step) on the one-rank NCCL mesh: the lm phase's demo run,
+  whose losses it must give bit for bit, with its prox launches held and a
+  restart from its step-50 checkpoint; and one rank's share of the dry
+  run's demo train_4k cell (rank 0's 1 x 4,096 tokens of the 256-rank
+  mesh), timed beside the dry run's per-rank roofline terms, its launches
+  equal to the dry run's count;
 * the dry run and its cost model (``repro_torch.launch.dryrun --all``, a
   subprocess over a fake process group of 256 or 512 ranks on meta
   tensors, 10 cells, rendered by ``repro_torch.launch.report`` into
@@ -181,6 +188,12 @@ LM_PROX_CHECK_LAM = 120.0
 # 100 groups, f32): its gap is rounded to multiples of ~2^-7 there, so tol
 # sits above that rounding.
 LM_SOLVER = ("--solver", "--tol", "0.1")
+# The lm_mesh phase: the lm phase's demo run through the sharded step on the
+# one-rank NCCL mesh, and one rank's share of the dry run's demo train_4k
+# cell (rank 0's 1 x 4,096 tokens of the 256-rank single-pod mesh).
+LM_MESH_SHAPE = "train_4k"
+LM_MESH_SEQ = 4_096
+LM_MESH_DRYRUN_S = 120    # the dry run's cell in a subprocess
 # The dryrun phase: the dry run's 10 cells (sgl-paper's solve and demo's
 # four shapes, each on 1 pod and 2) in a subprocess, then one rank's shard
 # of the sgl-paper cell on the 256-rank mesh on the card: n = 16,384 rows,
@@ -2364,6 +2377,180 @@ def run_lm(dev=None):
         solver_cpu={k: cpu_solver[k] for k in ("gap", "fista_steps",
                                                "active", "screened")},
         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches, record, losses
+
+
+def run_lm_mesh(lm_losses, dev=None):
+    """LM training across ranks on the card, on the one-rank NCCL mesh
+    (``launch.train.run_train(args, mesh=make_test_mesh())``, the sharded
+    step: parameters and AdamW moments as DTensor shards, gathered whole
+    for the forward, the gradients all-reduced, the prox over whole rows):
+
+    (a) the lm phase's demo run (``LM_TRAIN``) through the sharded step:
+        its losses must be ``lm_losses``, the one-rank trainer's, bit for
+        bit; 4 prox launches a step, the first step's held against the
+        plain version; a restart from its step-50 checkpoint (written by
+        rank 0 from the gathered shards) must repeat steps 50-99 bit for
+        bit;
+    (b) one rank's share of demo ``train_4k`` on the 256-rank production
+        mesh (the dry run's cell, counted meanwhile in a subprocess over a
+        fake group): rank 0's 1 x 4,096 tokens and the full bf16
+        parameters through the same step (no SGL, as the cell), timed
+        (median of 5 after a warm-up) beside the dry run's per-rank
+        roofline terms; its launches must equal the dry run's count and
+        its loss must be finite.
+
+    Leaves no process group behind.  Returns (launch counts, the phase's
+    record)."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import batch_split, make_test_mesh
+    from repro_torch.launch.train import copy_batch, run_train
+    from repro_torch.models import build
+    from repro_torch.train.train_step import make_sharded_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda" if dev is None else dev)
+    out_dir = ROOT / "build" / "lm_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cell_json = out_dir / "demo_train_4k_single.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "demo",
+         "--shape", LM_MESH_SHAPE, "--json-out", str(cell_json), "--quiet"],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        launches = {}
+        mesh = make_test_mesh(dev)
+        ckpt = out_dir / "ckpt"
+        steps, every = LM_TRAIN["steps"], LM_TRAIN["ckpt_every"]
+        leaves = 2 * 2                    # demo: 2 layers x (w1, w3)
+        with _ProxCheck(leaves) as check:
+            full, counts = counted(
+                "lm_mesh train", lambda: run_train(lm_train_args(
+                    str(ckpt), steps, LM_TRAIN["sgl_lam"], dev), mesh=mesh),
+                LM_KERNELS, LM_IDLE)
+        launches.update(counts)
+        full_prox = counts["sgl_prox"]
+        prox = check.result()
+        losses = full["losses"]
+        same = losses == lm_losses
+        log(f"lm_mesh train: steps={steps} rows={full['rows']} "
+            f"repeat={full['repeat']} first_loss={losses[0]:.6f} "
+            f"last_loss={losses[-1]:.6f} median_ms={full['median_ms']:.3f} "
+            f"prox_launches={counts['sgl_prox']} bit_identical_to_lm={same} "
+            f"first_step_prox={json.dumps(prox)}")
+        want = leaves * steps if dev.type == "cuda" else 0
+        if counts["sgl_prox"] != want:
+            raise AssertionError(f"lm_mesh train: {counts['sgl_prox']} prox "
+                                 f"launches, want {want}")
+        if prox["calls"] != leaves or not prox["rel"] <= LM_PROX_REL:
+            raise AssertionError(f"lm_mesh train: prox kernel against its "
+                                 f"plain version {prox} (limit "
+                                 f"{LM_PROX_REL})")
+        if not same:
+            worst = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                            lm_losses))
+            raise AssertionError(f"lm_mesh train: losses differ from the "
+                                 f"one-rank trainer's (worst {worst:.3e})")
+        shutil.rmtree(ckpt / f"step_{steps:012d}")
+        resumed, counts = counted(
+            "lm_mesh resume", lambda: run_train(lm_train_args(
+                str(ckpt), steps, LM_TRAIN["sgl_lam"], dev), mesh=mesh),
+            LM_KERNELS, LM_IDLE)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        same_resume = resumed["losses"] == losses[every:]
+        log(f"lm_mesh resume: start={resumed['start']} "
+            f"bit_identical_losses={same_resume}")
+        if resumed["start"] != every or not same_resume:
+            raise AssertionError("lm_mesh resume: the restart did not repeat "
+                                 "the uninterrupted run's steps 50-99")
+
+        # (b) one rank's share of the dry run's demo train_4k cell
+        _, err = dry.communicate(timeout=LM_MESH_DRYRUN_S)
+        if dry.returncode != 0:
+            raise AssertionError(f"lm_mesh: the dry run's cell failed: "
+                                 f"{err[-2000:]}")
+        cell = json.loads(cell_json.read_text())
+        cfg = get("demo")
+        api = build(cfg)
+        shape_split = cell["split"]
+        rows, seq = shape_split["rows_per_rank"], LM_MESH_SEQ
+        gen = torch.Generator().manual_seed(SEED)
+        model = api.init_params(gen, dtype=torch.bfloat16, device=dev)
+        init_state, shard, step = make_sharded_train_step(
+            api, mesh, global_batch=rows, q_chunk=512)
+        params = shard(model)
+        opt_state = init_state(params)
+        batch = {"tokens": torch.as_tensor(
+            copy_batch(0, rows, seq, cfg.vocab), device=dev)}
+        if batch_split(rows, mesh).rows != rows:
+            raise AssertionError("lm_mesh shard: the one-rank mesh split "
+                                 "the rank's rows")
+        state = {"p": params, "o": opt_state}
+
+        def one_step():
+            state["p"], state["o"], m = step(state["p"], state["o"], batch)
+            return m
+
+        metrics, counts = counted("lm_mesh shard", one_step, (), LM_IDLE)
+        nonzero = {k: v for k, v in counts.items() if v}
+        if nonzero != cell["counts"]["launches"]:
+            raise AssertionError(f"lm_mesh shard: launches {nonzero} on the "
+                                 f"card, {cell['counts']['launches']} in the "
+                                 f"dry run")
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"lm_mesh shard: loss {loss}")
+        ms = _median_ms(one_step)
+        roof = cell["roofline"]
+        terms = {k: roof[f"t_{k}_s"] * 1e3
+                 for k in ("compute", "memory", "collective")}
+        bound = max(terms["compute"], terms["memory"])
+        per_rank = cell["counts"]
+        shard_rec = dict(
+            rows=rows, seq=seq, dtype="bfloat16", ms=ms, bound_ms=bound,
+            bound_by=roof["bottleneck"], share_of_bound=bound / ms,
+            t_compute_ms=terms["compute"], t_memory_ms=terms["memory"],
+            t_collective_ms=terms["collective"], loss=loss,
+            flops=per_rank["flops"], bytes=per_rank["bytes_accessed"],
+            collectives=cell["collectives"],
+            reference_collectives=cell["reference_collectives"],
+            launches=nonzero)
+        log(f"lm_mesh shard: demo {LM_MESH_SHAPE} rank 0 of 256, "
+            f"{rows} x {seq} tokens, bf16: ms={ms:.3f} dry-run "
+            f"t_compute_ms={terms['compute']:.4f} t_memory_ms="
+            f"{terms['memory']:.4f} t_collective_ms="
+            f"{terms['collective']:.6f} ({roof['bottleneck']}) "
+            f"share_of_bound={bound / ms:.3f} loss={loss:.6f} "
+            f"launches={json.dumps(nonzero)} card={CARD!r}")
+        del params, opt_state, state, model, mesh
+        record = dict(
+            world=dist.get_world_size(), backend=dist.get_backend(),
+            steps=steps, first_loss=losses[0], last_loss=losses[-1],
+            last10_loss=float(np.mean(losses[-10:])),
+            median_ms=full["median_ms"], stragglers=full["stragglers"],
+            prox_launches=full_prox, first_step_prox=prox,
+            bit_identical_to_lm=same, resume=dict(
+                start=resumed["start"], bit_identical=same_resume),
+            shard=shard_rec, launches=launches,
+            seconds=time.perf_counter() - t_phase)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
     return launches, record
 
 
@@ -2702,9 +2889,12 @@ def main() -> int:
     counts, chaos = run_chaos()
     add(counts)
     phase_line("chaos", chaos)
-    counts, lm = run_lm()
+    counts, lm, lm_losses = run_lm()
     add(counts)
     phase_line("lm", lm)
+    counts, lm_mesh = run_lm_mesh(lm_losses)
+    add(counts)
+    phase_line("lm_mesh", lm_mesh)
     counts, dryrun = run_dryrun()
     add(counts)
     phase_line("dryrun", dryrun)

@@ -42,7 +42,7 @@ from ..core.sgl import soft_threshold
 from ..core.solver import _dual_terms
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from ..launch.mesh import check_group_backends
+from ..launch.mesh import axes_group, check_group_backends
 
 __all__ = ["DistKernels", "DistSGLState", "make_dist_step",
            "solve_distributed"]
@@ -63,14 +63,6 @@ class DistSGLState(NamedTuple):
     group_mask: torch.Tensor # (G_l,) float
     gap: float
     step: int
-
-
-def _dp_group(mesh, multi_pod: bool):
-    """The data-parallel group: "data", or on the multi-pod mesh the
-    flattened ("pod", "data") dimension."""
-    if multi_pod:
-        return mesh["pod", "data"]._flatten().get_group()
-    return mesh.get_group("data")
 
 
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -94,7 +86,10 @@ def make_dist_step(mesh, *, tau: float, multi_pod: bool = False,
     """
     check_group_backends(mesh)
     tau = float(tau)
-    dp_group = _dp_group(mesh, multi_pod)
+    # the data-parallel group: "data", or on the multi-pod mesh the
+    # flattened ("pod", "data") dimension
+    dp_group = axes_group(
+        mesh, ("pod", "data") if multi_pod else ("data",))
     mp_group = mesh.get_group("model")
     acc = torch.promote_types(dtype, torch.float32)
 

@@ -24,14 +24,23 @@ the roofline from them.
   (f32 and bf16 designs), the batched-lambda step (B = 256, bf16 design)
   and a screening round, per rank; totals are per-rank counts x chips, as
   the reference scales its per-device costs.
-* An LM cell counts the whole step (the global batch) on one process: the
-  port has no activation placements yet, so it cannot partition the step
-  across ranks, and its collectives are not counted (``collectives`` null,
-  ROADMAP queue 1, item 8c).
+* An LM cell counts one rank's share of the step, as the sharded trainer
+  runs it (:func:`repro_torch.launch.specs.build_cell`): the rank's rows
+  of the global batch, the parameters gathered whole from their DTensor
+  shards, and for ``train`` the gradient all-reduce and AdamW on the
+  rank's shards.  Its FLOPs, bytes and ``collectives`` are per rank, the
+  roofline's totals per-rank counts x chips; ``split`` records the rows a
+  rank computes and how many ranks repeat them, and
+  ``reference_collectives`` the reference's per-device bytes of the same
+  cell (XLA's partitioned program, which moves activations: a different
+  split, recorded beside this one, not repaired).
 * ``memory.argument_bytes`` is each rank's shard of the arguments, from
-  their shapes and logical specs.  ``temp_bytes``, ``peak_bytes`` (and
-  ``output_bytes``) are null: no meta-device figure gives them, where the
-  reference reads ``compiled.memory_analysis()``.
+  their shapes and logical specs; a ``decode`` cell's cache is counted as
+  the rank holds it (its rows, whole along heads; ``cache_bytes``), beside
+  the reference's model-axis split of it (``cache_bytes_reference``).
+  ``temp_bytes``, ``peak_bytes`` (and ``output_bytes``) are null: no
+  meta-device figure gives them, where the reference reads
+  ``compiled.memory_analysis()``.
 
 ``--all`` runs each cell in a subprocess (so a failing cell cannot wedge
 the sweep), with the reference's per-cell timeout and error JSONs; where
@@ -52,16 +61,44 @@ import traceback
 
 import torch
 
-__all__ = ["fake_world", "main", "run_cell", "sweep"]
+__all__ = ["REFERENCE_COLLECTIVES", "fake_world", "main", "run_cell",
+           "sweep"]
 
 META = torch.device("meta")
-LM_COLLECTIVES_NOTE = (
-    "not counted: the port places no activations across ranks yet, so the "
-    "LM step runs whole on one process (ROADMAP queue 1, item 8c)")
+# The reference's per-device collective bytes of demo's LM cells, from its
+# own dry run on the CPU (``python -m repro.launch.dryrun --arch demo
+# --shape <shape> [--multi-pod]``): XLA split the model's attention and FFN
+# activations across the model axis.
+REFERENCE_COLLECTIVES = {
+    ("demo", "train_4k", False): {
+        "all-reduce": 1_468_796_804, "all-gather": 1_300_889_344,
+        "reduce-scatter": 0, "all-to-all": 285_212_672,
+        "collective-permute": 679_739_648},
+    ("demo", "prefill_32k", False): {
+        "all-reduce": 301_992_064, "all-gather": 318_771_200,
+        "reduce-scatter": 0, "all-to-all": 117_440_512,
+        "collective-permute": 150_995_200},
+    ("demo", "decode_32k", False): {
+        "all-reduce": 2_107_520, "all-gather": 79_716_992,
+        "reduce-scatter": 0, "all-to-all": 2_816,
+        "collective-permute": 1_504},
+    ("demo", "train_4k", True): {
+        "all-reduce": 1_845_891_044, "all-gather": 789_167_616,
+        "reduce-scatter": 0, "all-to-all": 251_658_240,
+        "collective-permute": 931_135_744},
+    ("demo", "prefill_32k", True): {
+        "all-reduce": 436_209_792, "all-gather": 142_610_688,
+        "reduce-scatter": 0, "all-to-all": 109_051_904,
+        "collective-permute": 234_881_152},
+    ("demo", "decode_32k", True): {
+        "all-reduce": 1_052_736, "all-gather": 39_872_672,
+        "reduce-scatter": 0, "all-to-all": 1_408,
+        "collective-permute": 752},
+}
 MEMORY_NOTE = (
     "argument_bytes: each rank's shard, from the arguments' shapes and "
-    "logical specs; output, temp and peak bytes: no meta-device figure "
-    "gives them")
+    "logical specs (a decode cell's cache as the rank holds it); output, "
+    "temp and peak bytes: no meta-device figure gives them")
 
 
 @contextlib.contextmanager
@@ -154,8 +191,7 @@ def _count_cell(arch, shape_name, multi_pod, q_chunk, mesh):
 
     from . import specs as speclib
 
-    cell = speclib.build_cell(cfg, shape, dp=meshlib.dp_size(mesh),
-                              model_axis=meshlib.model_size(mesh),
+    cell = speclib.build_cell(cfg, shape, mesh=mesh, multi_pod=multi_pod,
                               q_chunk=q_chunk)
     counts = rl.count_step(cell.fn, *cell.args)
     # model flops: tokens processed this step
@@ -163,14 +199,28 @@ def _count_cell(arch, shape_name, multi_pod, q_chunk, mesh):
         tokens = shape.global_batch * shape.seq_len
     else:
         tokens = shape.global_batch  # one token per sequence
-    p_structs = cell.args[0]
+    p_structs = cell.args[0].module
     mf = rl.model_flops(cfg, p_structs, cell.kind, tokens)
-    # The count is the whole step's (the global batch), so it is the total
-    # over the chips as it stands.
-    roof = rl.Roofline(flops=counts["flops"],
-                       bytes_accessed=counts["bytes_accessed"],
-                       collective_bytes=0.0, chips=chips, model_flops=mf,
-                       dtype="bfloat16")
+    # The count is one rank's: the totals are per-rank counts x chips.
+    roof = rl.Roofline(flops=counts["flops"] * chips,
+                       bytes_accessed=counts["bytes_accessed"] * chips,
+                       collective_bytes=counts["collective_bytes"] * chips,
+                       chips=chips, model_flops=mf, dtype="bfloat16")
+    memory = {
+        "argument_bytes": _shard_bytes(cell.in_specs, cell.structs, mesh,
+                                       multi_pod),
+        "output_bytes": None,
+        "temp_bytes": None,
+        "peak_bytes": None,
+    }
+    if cell.kind == "decode":
+        # the cache as the rank holds it, beside the reference's split
+        held = _nbytes(cell.args[1])
+        split = _shard_bytes(cell.in_specs[1], cell.structs[1], mesh,
+                             multi_pod)
+        memory["argument_bytes"] += held - split
+        memory.update(cache_bytes=held, cache_bytes_reference=split)
+    ref = REFERENCE_COLLECTIVES.get((arch, shape_name, multi_pod))
     return {
         "arch": arch,
         "shape": shape_name,
@@ -181,19 +231,18 @@ def _count_cell(arch, shape_name, multi_pod, q_chunk, mesh):
         "seconds": time.time() - t0,
         "params": rl.count_params(p_structs),
         "active_params": rl.active_params(cfg, p_structs),
-        "memory": {
-            "argument_bytes": _shard_bytes(cell.in_specs, cell.structs,
-                                           mesh, multi_pod),
-            "output_bytes": None,
-            "temp_bytes": None,
-            "peak_bytes": None,
-        },
+        "split": {"batch_axes": list(cell.split.axes),
+                  "rows_per_rank": cell.split.rows,
+                  "repeat": cell.split.repeat},
+        "memory": memory,
         "memory_note": MEMORY_NOTE,
-        "collectives": None,
-        "collectives_note": LM_COLLECTIVES_NOTE,
+        "collectives": {k[len("coll_"):]: v for k, v in counts.items()
+                        if k.startswith("coll_")},
+        "reference_collectives": (None if ref is None else
+                                  {k: float(v) for k, v in ref.items()}),
         "roofline": roof.as_dict(),
         "counts": counts,
-        "counts_per": "step",
+        "counts_per": "rank",
     }
 
 

@@ -39,7 +39,8 @@ import sys
 
 from ..obs.export import BENCH_SCHEMA
 
-__all__ = ["dryrun_matrix", "load", "main", "memory_table",
+__all__ = ["collectives_table", "dryrun_matrix", "load", "main",
+           "memory_table",
            "render_analysis_markdown", "render_obs_markdown",
            "render_sweep_markdown", "roofline_table"]
 
@@ -165,6 +166,34 @@ def memory_table(cells):
               f"{_gib(m.get('argument_bytes') or 0)} | "
               f"{_gib(m.get('temp_bytes'))} | "
               f"{_gib(m.get('peak_bytes'))} |")
+
+
+def _mb(x) -> str:
+    return "-" if x is None else f"{x / 1e6:.3f} MB"
+
+
+def collectives_table(cells):
+    """The LM cells' per-rank collective bytes beside the reference's
+    (``reference_collectives``), and the batch split they come from."""
+    print("\n### LM collectives per rank (bytes a step; the reference's "
+          "partitioned program beside them)\n")
+    print("| arch | shape | pods | rows a rank (x repeat) | all-reduce | "
+          "all-gather | reference all-reduce | reference all-gather | "
+          "reference all-to-all + permute |")
+    print("|---|---|---|---|---|---|---|---|---|")
+    for c in cells:
+        if c.get("status") != "ok" or "split" not in c:
+            continue
+        got, ref = c.get("collectives") or {}, c.get("reference_collectives")
+        sp = c["split"]
+        other = (None if ref is None else
+                 ref["all-to-all"] + ref["collective-permute"])
+        print(f"| {c['arch']} | {c['shape']} | "
+              f"{2 if c.get('multi_pod') else 1} | "
+              f"{sp['rows_per_rank']} (x{sp['repeat']}) | "
+              f"{_mb(got.get('all-reduce'))} | {_mb(got.get('all-gather'))} | "
+              f"{_mb(ref and ref['all-reduce'])} | "
+              f"{_mb(ref and ref['all-gather'])} | {_mb(other)} |")
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +531,7 @@ def main(argv=None):
     roofline_table(cells, multi_pod=False)
     roofline_table(cells, multi_pod=True)
     memory_table(cells)
+    collectives_table(cells)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ raises).  Two modes, mirroring the two workloads in this framework:
 
 Fault tolerance:
   * atomic checkpoints every --ckpt-every steps, keep-k GC, and a SIGTERM
-    preemption hook that snapshots before the scheduler kills the job;
+    preemption hook that snapshots, at the end of the step the signal
+    lands in, before the scheduler kills the job;
   * restart = re-invoke the same command: the driver restores the latest
     checkpoint (parameters and AdamW state, device independent);
   * a straggler watchdog: per-step wall time is tracked against a rolling
@@ -27,9 +28,26 @@ Fault tolerance:
 The copy-task batch of step s is drawn from ``np.random.default_rng(s)``
 (the reference draws every step from one generator seeded with the start
 step), so a resumed run sees the batches an uninterrupted run saw and gives
-its losses.  LM training runs on one rank and refuses ``--production-mesh``
-(training across ranks is not ported); the production mesh, over a world of
-256 ranks that this driver does not start, serves ``--solver``.
+its losses.
+
+Across ranks: ``--production-mesh`` runs either mode on the (16, 16) mesh
+over a world of 256 ranks, which :func:`repro_torch.launch.mesh.init_world`
+joins from torchrun's environment::
+
+    torchrun --nnodes 16 --nproc-per-node 16 ... \
+        -m repro_torch.launch.train --production-mesh --arch demo --batch 256
+
+(any other world size raises ``make_production_mesh``'s message).  A
+caller may also pass ``run_train(args, mesh=...)`` a mesh it built.  LM
+training on a mesh (``train.train_step.make_sharded_train_step``) stores
+the parameters and AdamW moments as per-rank shards placed by
+``param_specs``; every rank draws the global batch of the step and
+computes its rows (``mesh.batch_split``); rank 0 alone writes each
+checkpoint, from the shards every rank gathers, while the others wait at
+a barrier; a restore reads the whole tree on every rank and keeps the
+rank's shards, so a checkpoint resumes on any world size.  The SIGTERM
+hook and the straggler watchdog run per rank (the ranks agree on a SIGTERM
+at the end of the step and snapshot together); only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -58,8 +76,8 @@ def parse_args(argv: Optional[list] = None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--straggler-factor", type=float, default=3.0)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="solve on the 16x16 mesh (needs a world of 256 "
-                         "ranks; --solver only)")
+                    help="run on the 16x16 mesh (needs a world of 256 "
+                         "ranks, e.g. from torchrun)")
     # solver mode
     ap.add_argument("--solver", action="store_true",
                     help="run the distributed SGL solver instead of LM train")
@@ -79,8 +97,10 @@ def parse_args(argv: Optional[list] = None):
 def _mesh(args):
     from . import mesh as meshlib
 
-    return (meshlib.make_production_mesh(device=args.device)
-            if args.production_mesh else meshlib.make_test_mesh(args.device))
+    if args.production_mesh:
+        meshlib.init_world(args.device)
+        return meshlib.make_production_mesh(device=args.device)
+    return meshlib.make_test_mesh(args.device)
 
 
 def _mesh_sizes(mesh) -> dict:
@@ -154,106 +174,164 @@ def copy_batch(step: int, batch: int, seq: int, vocab: int) -> np.ndarray:
     return np.concatenate([first, first], axis=1)
 
 
-def run_train(args) -> dict:
-    """LM training on one rank.  Returns the run's record: the steps it
-    ran, their losses and wall times, stragglers, parameter count and the
-    final ``ffn_zero`` (with SGL on)."""
-    import torch
+def run_train(args, mesh=None) -> dict:
+    """LM training, on one rank, or across the ranks of ``mesh`` (or of the
+    production mesh with ``--production-mesh``).  Returns the run's
+    record: the steps it ran, their losses and wall times, stragglers,
+    parameter count, the final ``ffn_zero`` (with SGL on), this rank, the
+    batch split (``rows`` a rank, ``repeat``), the parameters (the model,
+    or on a mesh its :class:`~repro_torch.train.train_step.ShardedParams`)
+    and the AdamW state.
 
-    from ..ckpt.checkpoint import CheckpointManager
+    A checkpoint holds the whole tree whatever the world (on a mesh every
+    rank gathers it and rank 0 writes it while the others wait at a
+    barrier), so it restores on any world size.  SIGTERM is noted by a
+    handler and acted on at the end of the step it lands in: the ranks
+    agree on it, snapshot that step's whole tree and exit 143."""
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    from ..ckpt import checkpoint as ckpt
     from ..configs import get
     from ..kernels._util import resolve_device
     from ..models import build
+    from ..train import train_step as ts
     from ..train.sgl_regularizer import SGLRegConfig, group_sparsity
-    from ..train.train_step import make_train_step
+    from . import mesh as meshlib
 
-    if args.production_mesh:
-        raise ValueError("LM training across ranks is not ported: "
-                         "--production-mesh serves --solver only")
+    if mesh is None and args.production_mesh:
+        mesh = _mesh(args)
     dev = resolve_device(args.device)
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     api = build(cfg)
 
-    params = api.init_params(torch.Generator().manual_seed(0),
-                             dtype=torch.float32, device=dev)
-    n_params = sum(p.numel() for p in params.parameters())
+    model = api.init_params(torch.Generator().manual_seed(0),
+                            dtype=torch.float32, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
 
     sgl_cfg = (SGLRegConfig(lam=args.sgl_lam, tau=args.sgl_tau)
                if args.sgl_lam > 0 else None)
-    init_state, train_step = make_train_step(
-        api, lr=args.lr, sgl_cfg=sgl_cfg, q_chunk=min(512, args.seq))
+    kw = dict(lr=args.lr, sgl_cfg=sgl_cfg, q_chunk=min(512, args.seq))
+    if mesh is None:
+        init_state, train_step = ts.make_train_step(api, **kw)
+        params, rank = model, 0
+        split = meshlib.BatchSplit((), args.batch, 0, 1)
+        where = f"one rank ({dev})"
+        whole = lambda: params
+        snapshot = lambda: ({k: p.detach() for k, p in
+                             params.state_dict().items()}, opt_state)
+    else:
+        init_state, shard_params, train_step = ts.make_sharded_train_step(
+            api, mesh, global_batch=args.batch,
+            multi_pod="pod" in mesh.mesh_dim_names, **kw)
+        params, rank = shard_params(model), dist.get_rank()
+        split = meshlib.batch_split(args.batch, mesh)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        where = (f"mesh {sizes} ({dev}), {split.rows} rows a rank over "
+                 f"{split.axes or 'no axis'} (x{split.repeat})")
+        whole = lambda: ts.gather_params(params)        # collectives
+        snapshot = lambda: ts.full_tree(params, opt_state)
     opt_state = init_state(params)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"arch={args.arch}{' (reduced)' if args.reduced else ''}: "
+        f"{n_params / 1e6:.2f}M params on {where}, "
+        f"SGL={'on' if sgl_cfg else 'off'}")
 
-    print(f"arch={args.arch}{' (reduced)' if args.reduced else ''}: "
-          f"{n_params / 1e6:.2f}M params on one rank ({dev}), "
-          f"SGL={'on' if sgl_cfg else 'off'}")
+    def any_rank(flag: bool) -> bool:
+        if mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t)
 
-    def tree():
-        return ({k: p.detach() for k, p in params.state_dict().items()},
-                opt_state)
+    def save(step: int, due: bool) -> None:
+        tree = snapshot()
+        if rank == 0:
+            if due:
+                mgr.maybe_save(step, tree)
+            else:
+                ckpt.save(mgr.directory, step, tree)
+        if mesh is not None:
+            dist.barrier()
 
     mgr = None
     start = 0
+    preempted: list = []
     if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every, keep=3)
-        got, restored = mgr.restore_latest(tree(), device=dev)
+        mgr = ckpt.CheckpointManager(args.ckpt_dir, every=args.ckpt_every,
+                                     keep=3)
+        got, restored = mgr.restore_latest(snapshot(), device=dev)
         if restored is not None:
-            state, opt_state = restored
-            params.load_state_dict(state)
+            if mesh is None:
+                state, opt_state = restored
+                params.load_state_dict(state)
+            else:
+                opt_state = ts.restore_tree(params, restored)
             start = got
-            print(f"resumed from step {start} (restore is device "
-                  f"independent)")
-        # preemption hook: snapshot on SIGTERM before the scheduler kills us
-        state_ref = {"step": start, "tree": tree()}
-        mgr.install_sigterm_hook(
-            lambda: (state_ref["step"], state_ref["tree"]))
+            say(f"resumed from step {start} (restore is device and "
+                f"device-count independent)")
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: preempted.append(signum))
 
     losses: list = []
     step_times: list = []
     stragglers = 0
     ffn_zero = None
-    for step in range(start, args.steps):
-        toks = copy_batch(step, args.batch, args.seq, cfg.vocab)
-        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    try:
+        for step in range(start, args.steps):
+            toks = copy_batch(step, args.batch, args.seq, cfg.vocab)
+            rows = toks[split.start:split.start + split.rows]
+            batch = {"tokens": torch.as_tensor(rows, device=dev)}
 
-        t0 = time.perf_counter()
-        params, opt_state, metrics = train_step(params, opt_state, batch)
-        loss = float(metrics["loss"])          # waits for the step
-        dt = time.perf_counter() - t0
-        losses.append(loss)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = train_step(params, opt_state, batch)
+            loss = float(metrics["loss"])          # waits for the step
+            dt = time.perf_counter() - t0
+            losses.append(loss)
 
-        # straggler watchdog (rolling-median deadline)
-        if len(step_times) >= 5:
-            med = float(np.median(step_times[-50:]))
-            if dt > args.straggler_factor * med:
-                stragglers += 1
-                print(f"  [straggler] step {step}: {dt * 1e3:.0f}ms "
-                      f"vs median {med * 1e3:.0f}ms")
-        step_times.append(dt)
+            # straggler watchdog (rolling-median deadline), per rank
+            if len(step_times) >= 5:
+                med = float(np.median(step_times[-50:]))
+                if dt > args.straggler_factor * med:
+                    stragglers += 1
+                    say(f"  [straggler] step {step}: {dt * 1e3:.0f}ms "
+                        f"vs median {med * 1e3:.0f}ms")
+            step_times.append(dt)
 
+            if mgr:
+                # preemption: snapshot this step on every rank's word
+                if any_rank(bool(preempted)):
+                    save(step + 1, due=False)
+                    say(f"preempted: saved step {step + 1}")
+                    raise SystemExit(143)
+                if (step + 1) % mgr.every == 0:
+                    save(step + 1, due=True)
+
+            if step % 20 == 0 or step == args.steps - 1:
+                msg = (f"step {step:4d}  loss {loss:.4f}  "
+                       f"{dt * 1e3:6.1f} ms/step")
+                if sgl_cfg:
+                    sp = group_sparsity(whole())
+                    if sp:
+                        ffn_zero = float(np.mean(list(sp.values())))
+                        msg += f"  ffn_zero {ffn_zero:.1%}"
+                say(msg)
+    finally:
         if mgr:
-            state_ref["step"] = step + 1
-            state_ref["tree"] = tree()
-            mgr.maybe_save(step + 1, tree())
-
-        if step % 20 == 0 or step == args.steps - 1:
-            msg = (f"step {step:4d}  loss {loss:.4f}  "
-                   f"{dt * 1e3:6.1f} ms/step")
-            if sgl_cfg:
-                sp = group_sparsity(params)
-                if sp:
-                    ffn_zero = float(np.mean(list(sp.values())))
-                    msg += f"  ffn_zero {ffn_zero:.1%}"
-            print(msg)
+            signal.signal(signal.SIGTERM, prev)
 
     med = float(np.median(step_times)) if step_times else float("nan")
-    print(f"\ndone: median {med * 1e3:.1f} ms/step, "
-          f"{stragglers} straggler step(s) flagged")
+    say(f"\ndone: median {med * 1e3:.1f} ms/step, "
+        f"{stragglers} straggler step(s) flagged")
     return dict(start=start, steps=args.steps, losses=losses,
                 step_s=step_times, median_ms=med * 1e3, stragglers=stragglers,
-                n_params=n_params, ffn_zero=ffn_zero, params=params)
+                n_params=n_params, ffn_zero=ffn_zero, rank=rank,
+                rows=split.rows, repeat=split.repeat, params=params,
+                opt_state=opt_state)
 
 
 def main(argv: Optional[list] = None):

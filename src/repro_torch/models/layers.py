@@ -19,23 +19,35 @@ reference's, which the parity tests compare.
 Every ``init_*`` block has a matching ``specs_*`` function giving the
 reference's logical :class:`repro_torch.launch.mesh.P` spec tree, in the
 reference's parameter layout and structure.
+
+Across ranks (``train.train_step.make_sharded_train_step``) each rank runs
+these functions on its rows of the global batch.  The one function that
+couples rows, :func:`moe_ffn`, reads the :class:`BatchGroup` that
+:func:`batch_group` sets for the step (none outside it: a no-op), so its
+capacity, its experts' token picks and its aux term are the global
+batch's.  :func:`shard_act` is the reference's opt-in activation hint on a
+DTensor, whose own mesh stands in for the reference's hint state
+(``set_activation_mesh`` is not ported: a DTensor carries its mesh).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..launch.mesh import P
 
 __all__ = [
-    "Attn", "MLP", "MoE", "attn_qkv", "causal_attention",
+    "Attn", "BatchGroup", "MLP", "MoE", "attn_qkv", "batch_group", "causal_attention",
     "fill_rolling_cache", "full_attention", "init_attn", "init_mlp",
     "init_moe", "init_norm", "linear", "mlp", "moe_ffn", "normal_",
-    "qkv_act_spec", "rms_norm", "rope", "specs_attn", "specs_mlp", "specs_moe",
+    "qkv_act_spec", "rms_norm", "rope", "shard_act", "shard_act_spec", "specs_attn",
+    "specs_mlp", "specs_moe",
 ]
 
 
@@ -43,16 +55,116 @@ __all__ = [
 # Activation sharding
 # ----------------------------------------------------------------------------
 
+def shard_act_spec(shape, spec, sizes) -> Optional[P]:
+    """The reference's ``shard_act`` decision for an activation of
+    ``shape`` under the hint ``spec`` on a mesh of ``sizes`` {axis name:
+    size}: per dimension, the hint's axis (or axes) where every one is in
+    the mesh and their product divides the dimension, else
+    ``P.UNCONSTRAINED``.  None where no dimension is named (the reference
+    then returns its input untouched)."""
+    out = [P.UNCONSTRAINED] * len(shape)
+    named = False
+    for i, e in enumerate(spec):
+        if e is None or i >= len(shape):
+            continue
+        axes = e if isinstance(e, (tuple, list)) else (e,)
+        if not all(a in sizes for a in axes):
+            continue
+        prod = math.prod(sizes[a] for a in axes)
+        if prod and shape[i] % prod == 0:
+            out[i] = e
+            named = True
+    return P(*out) if named else None
+
+
+def shard_act(x, *spec):
+    """Divisibility-aware activation placement, the reference's opt-in
+    ``shard_act``: on a DTensor, redistribute to :func:`shard_act_spec`'s
+    decision on the DTensor's own mesh (a named dimension sharded over its
+    axes; a mesh dimension the decision does not name keeps a shard of an
+    unconstrained dimension, and a shard of a named dimension is gathered).
+    A plain tensor, or a decision that names nothing, comes back as is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    decided = shard_act_spec(tuple(x.shape), spec,
+                             dict(zip(names, mesh.mesh.shape)))
+    if decided is None:
+        return x
+    placements = []
+    for name, cur in zip(names, x.placements):
+        dims = [i for i, e in enumerate(decided)
+                if e is not P.UNCONSTRAINED
+                and name in (e if isinstance(e, (tuple, list)) else (e,))]
+        if dims:
+            placements.append(Shard(dims[0]))
+        elif cur.is_shard() and decided[cur.dim] is not P.UNCONSTRAINED:
+            placements.append(Replicate())
+        else:
+            placements.append(cur)
+    return x.redistribute(mesh, placements)
+
+
 def qkv_act_spec(n_heads, hd, model_axis: int):
     """Pick the shardable axis for (B, S, H, hd) activations: heads when
     divisible, else head_dim, else leave unconstrained.  The reference's
-    decision as a pure function; the port places no activation hint, as it
-    trains the LM on one rank."""
+    decision as a pure function; like the reference's models, the port's
+    call no activation hint with it."""
     if n_heads % model_axis == 0:
         return (None, None, "model", None)
     if hd % model_axis == 0:
         return (None, None, None, "model")
     return (None, None, None, None)
+
+
+# ----------------------------------------------------------------------------
+# The ranks that split a global batch
+# ----------------------------------------------------------------------------
+
+class BatchGroup(NamedTuple):
+    """The ranks that split one global batch in equal blocks of rows:
+    ``group`` their process group, ``size`` how many, ``index`` this rank's
+    block (blocks in rank order make the global batch)."""
+
+    group: Any
+    size: int
+    index: int
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the group's ranks (a new tensor, outside
+        autograd)."""
+        out = t.detach().clone()
+        dist.all_reduce(out, group=self.group)
+        return out
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked along dimension 0 in block order (a
+        new tensor, outside autograd)."""
+        t = t.detach().contiguous()
+        out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=self.group)
+        return out
+
+
+# Set only inside :func:`batch_group` (and restored on leaving it): the
+# model functions read it where the reference's would read its activation
+# hint, so no model signature carries it.
+_BATCH_GROUP: Optional[BatchGroup] = None
+
+
+@contextlib.contextmanager
+def batch_group(group: Optional[BatchGroup]):
+    """Run the model on this rank's rows of a batch that ``group`` splits
+    (None: the rows are the whole batch, as outside the context)."""
+    global _BATCH_GROUP
+    prev, _BATCH_GROUP = _BATCH_GROUP, group
+    try:
+        yield
+    finally:
+        _BATCH_GROUP = prev
 
 
 # ----------------------------------------------------------------------------
@@ -360,44 +472,82 @@ def moe_ffn(p: MoE, x, cfg):
     C = T for T <= 512 (exact routing, no dropping), else
     min(max(1, int(T k capacity_factor / E)), T).  Returns (out, aux), aux
     the load-balance term E sum(mean probs * mean routed).
+
+    Under :func:`batch_group`, ``x`` is this rank's rows and T the global
+    token count: each expert picks its top C of the group's gathered
+    combine scores and this rank runs the picks that are its own tokens;
+    ``aux`` is this rank's share, E sum_e (sum of its probs / T) ce_e with
+    ce_e the group's routed share, so the shares sum to the global term
+    (on a group of one, the step's own arithmetic: a scale of exactly 1).
     """
     B, S, D = x.shape
     E, k = cfg.moe.n_experts, cfg.moe.top_k
-    T = B * S
+    bg = _BATCH_GROUP
+    T_l = B * S
+    T = T_l if bg is None else T_l * bg.size
     if T <= 512:
         C = T
     else:
         C = min(max(1, int(T * k * cfg.moe.capacity_factor / E)), T)
 
-    xt = x.reshape(T, D)
+    xt = x.reshape(T_l, D)
     logits = xt.float() @ p.router                           # (T, E)
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)                # (T, k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
     # per-(token, expert) combine weight; 0 if expert not in token's top-k
-    combine = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    combine = torch.zeros((T_l, E), dtype=torch.float32, device=x.device)
     combine = combine.scatter_add(1, topi, topv)
 
     # Each expert picks its top-C tokens by routing weight.  torch.topk
     # orders tied scores differently from lax.top_k; ties are the zero
     # scores of tokens not routed to the expert, which contribute 0, so the
     # order matters only when C < T cuts through them.
-    escore = combine.T                                       # (E, T)
-    cscore, cidx = torch.topk(escore, C, dim=-1)             # (E, C)
-    ex = xt[cidx.reshape(-1)].reshape(E, C, D)
+    if bg is None:
+        escore = combine.T                                   # (E, T)
+        cscore, cidx = torch.topk(escore, C, dim=-1)         # (E, C)
+    else:
+        cscore, cidx = _own_picks(combine, bg.gather(combine).T, C,
+                                  bg.index * T_l)
+    Ce = cidx.shape[1]
+    ex = xt[cidx.reshape(-1)].reshape(E, Ce, D)
 
     h = F.silu(torch.einsum("ecd,efd->ecf", ex, p.w1))
     h = h * torch.einsum("ecd,efd->ecf", ex, p.w3)
     eo = torch.einsum("ecf,edf->ecd", h, p.w2)               # (E, C, D)
 
     eo = eo * cscore[..., None].to(eo.dtype)
-    out = torch.zeros((T, D), dtype=eo.dtype, device=x.device)
-    out = out.index_add(0, cidx.reshape(-1), eo.reshape(E * C, D))
+    out = torch.zeros((T_l, D), dtype=eo.dtype, device=x.device)
+    out = out.index_add(0, cidx.reshape(-1), eo.reshape(E * Ce, D))
     me = torch.mean(probs, dim=0)
     ce = torch.mean((combine > 0).float(), dim=0)
+    if bg is not None:
+        share = T_l / T
+        me = me * share
+        ce = bg.sum(ce * share)
     aux = E * torch.sum(me * ce)
     return out.reshape(B, S, D), aux
+
+
+def _own_picks(combine, escore, C: int, start: int):
+    """Each expert's top-C tokens of the group's scores ``escore`` (E, T)
+    that are this rank's, its rows ``start`` .. ``start + T_l`` of the
+    group's tokens: (scores, local token indices), each (E, C_own) with
+    C_own the most any expert keeps here, the picks in their top-C order,
+    and an expert with fewer padded by token 0 at score 0 (it adds 0).
+    The scores are read from this rank's ``combine`` (T_l, E), so their
+    gradient stays local."""
+    T_l = combine.shape[0]
+    _, gidx = torch.topk(escore, C, dim=-1)                  # (E, C)
+    own = (gidx >= start) & (gidx < start + T_l)
+    c_own = int(own.sum(-1).max())
+    order = torch.sort((~own).to(torch.int8), dim=-1, stable=True).indices
+    keep = order[:, :c_own]
+    valid = torch.gather(own, 1, keep)
+    lidx = torch.where(valid, torch.gather(gidx, 1, keep) - start, 0)
+    score = torch.gather(combine.T, 1, lidx) * valid
+    return score, lidx
 
 
 def fill_rolling_cache(k, buf_len: int, dtype):

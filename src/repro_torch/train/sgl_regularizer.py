@@ -33,8 +33,8 @@ from torch import nn
 
 from ..kernels import ops
 
-__all__ = ["SGLRegConfig", "apply_prox", "ffn_groups", "group_sparsity",
-           "prox_rows", "screen_groups"]
+__all__ = ["SGLRegConfig", "apply_prox", "apply_prox_sharded", "ffn_groups",
+           "group_sparsity", "prox_rows", "screen_groups"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +83,32 @@ def apply_prox(params, cfg: SGLRegConfig, lr: float):
         out = prox_rows(rows.to(torch.float32), lr, cfg)
         leaf.copy_(out.reshape(leaf.shape).to(leaf.dtype))
     return params
+
+
+@torch.no_grad()
+def apply_prox_sharded(shards: Dict[str, torch.Tensor], cfg: SGLRegConfig,
+                       lr: float):
+    """:func:`apply_prox` on parameters stored sharded across ranks
+    (name -> DTensor, ``train_step.make_sharded_train_step``), in place: a
+    w1/w3 row (one neuron group of D entries) is whole only across the
+    mesh dimensions that split D, so each leaf's rows are gathered across
+    those, this rank's rows go through one :func:`prox_rows` call (one
+    ``sgl_prox`` launch per leaf per rank), and the rank keeps its own
+    block of them."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    for _, shard in ffn_groups(shards):
+        mesh, last = shard.device_mesh, shard.ndim - 1
+        whole = [Replicate() if p.is_shard(last) else p
+                 for p in shard.placements]
+        rows = shard.redistribute(mesh, whole).to_local()
+        out = prox_rows(rows.reshape(-1, rows.shape[-1]).to(torch.float32),
+                        lr, cfg).reshape(rows.shape).to(rows.dtype)
+        own = DTensor.from_local(out, mesh, whole, run_check=False,
+                                 shape=shard.shape, stride=shard.stride())
+        shard.to_local().copy_(own.redistribute(mesh,
+                                                shard.placements).to_local())
+    return shards
 
 
 def screen_groups(w: torch.Tensor, grad_w: torch.Tensor, cfg: SGLRegConfig,

@@ -18,7 +18,10 @@ once, also in subprocesses.
 * demo: ``params``, ``active_params`` and ``model_flops`` equal in every
   cell (the reference's rule on its own parameter shapes, in process); the
   skipped cell's status and reason equal; the counted FLOPs and bytes
-  recorded beside the reference's.
+  (one rank's share x chips) recorded beside the reference's; each cell's
+  per-rank collective bytes equal a closed form from the port-layout
+  specs, with the reference's bytes recorded beside them (equal to its
+  own dry run's for train_4k).
 * The three tables render the same rows and figures from one reference
   payload in both packages (the hint column says "tensor cores" for
   "MXU").
@@ -46,7 +49,8 @@ from repro.launch import mesh as jmeshlib
 from repro.launch import report as jreport
 from repro.launch import roofline as jrl
 from repro.models import build as jbuild
-from repro_torch.configs.base import LM_SHAPES
+from repro_torch.configs import get
+from repro_torch.configs.base import LM_SHAPES, SHAPES_BY_NAME
 from repro_torch.distributed.solver_dist import make_dist_step
 from repro_torch.kernels import _util, ops
 from repro_torch.kernels.bcd_epoch import bcd_epoch_work
@@ -56,6 +60,7 @@ from repro_torch.kernels.sgl_prox import sgl_prox_work
 from repro_torch.launch import dryrun, reanalyze, report
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import roofline as rl
+from repro_torch.models import build
 
 ROOT = Path(__file__).resolve().parents[1]
 CELL_TIMEOUT = 180
@@ -68,7 +73,8 @@ BF16_BYTES = {(False, "fista_bf16"): 2.4996, (True, "fista_bf16"): 2.4993,
               (True, "fista_batch256_bf16"): 3.1289}
 BF16_ARGS = {False: 1.0448, True: 1.0857}
 # demo: the port's counted FLOPs and bytes against the reference's (XLA on
-# the CPU counts the partitioned step, the port the whole step's aten ops).
+# the CPU counts the partitioned step, the port one rank's share of the
+# step's aten ops, x 256).
 DEMO_TRAIN_RATIO = {"flops": 0.0239, "bytes": 0.0189}
 
 
@@ -205,8 +211,49 @@ def test_demo_cells_params_and_model_flops(port_dir, shape, mp):
     assert got["active_params"] == jrl.active_params(jcfg, structs)
     assert got["roofline"]["model_flops"] == jrl.model_flops(
         jcfg, structs, sh.kind, tokens)
-    assert got["collectives"] is None and "8c" in got["collectives_note"]
+    assert got["collectives"] == _lm_collectives(shape, mp)
+    assert got["counts_per"] == "rank"
+    assert got["reference_collectives"] == {
+        k: float(v) for k, v in
+        dryrun.REFERENCE_COLLECTIVES["demo", shape, mp].items()}
     assert got["roofline"]["dtype"] == "bfloat16"
+
+
+def _lm_collectives(shape: str, mp: bool) -> dict:
+    """A rank's collective bytes in a demo cell, in closed form from the
+    port-layout specs of its bf16 leaves: each leaf gathered whole, one
+    all-gather per tensor dimension it is split along (the last mesh
+    dimension's first; (pod, data) is one flattened dimension), each
+    counted at its result; for ``train`` every gradient all-reduced once
+    over the ranks that split the batch (the leaf's bytes) plus four f32
+    scalars (the global mask count, then the loss, aux and total)."""
+    sizes = ({"pod": 2, "data": 16, "model": 16} if mp
+             else {"data": 16, "model": 16})
+    api = build(get("demo"))
+    model = api.init_params(dtype=torch.bfloat16, device="meta")
+    specs = meshlib.lm_param_specs(api, model, sizes, multi_pod=mp)
+    gather = reduce = 0
+    for k, p in model.named_parameters():
+        nbytes = p.numel() * p.element_size()
+        # split tensor dimensions, ordered by their last mesh axis, last first
+        split = []
+        for dim, entry in enumerate(specs[k]):
+            axes = (entry if isinstance(entry, tuple) else (entry,)) \
+                if entry is not None else ()
+            if axes:
+                split.append((max(tuple(sizes).index(a) for a in axes),
+                              int(np.prod([sizes[a] for a in axes]))))
+        local = nbytes // int(np.prod([n for _, n in split] or [1]))
+        for _, n in sorted(split, reverse=True):
+            local *= n
+            gather += local
+        reduce += nbytes
+    out = dict.fromkeys(("all-reduce", "all-gather", "reduce-scatter",
+                         "all-to-all", "collective-permute"), 0.0)
+    out["all-gather"] = float(gather)
+    if SHAPES_BY_NAME[shape].kind == "train":
+        out["all-reduce"] = float(reduce + 4 * 4)
+    return out
 
 
 def test_demo_cells_match_reference_cells(ref_cells, port_dir):
@@ -222,6 +269,11 @@ def test_demo_cells_match_reference_cells(ref_cells, port_dir):
     # each rank's share of the arguments, from the structs and the specs
     assert got["memory"]["argument_bytes"] == \
         want["memory"]["argument_bytes"]
+    # the reference's collectives, recorded beside the port's per-rank
+    # count (its partitioned program moves activations)
+    assert got["reference_collectives"] == want["collectives"]
+    assert got["collectives"]["all-reduce"] < \
+        1e-3 * want["collectives"]["all-reduce"]
     # recorded: the counted FLOPs and bytes beside the reference's
     assert got["roofline"]["flops"] / want["roofline"]["flops"] == \
         pytest.approx(DEMO_TRAIN_RATIO["flops"], rel=0.05)
@@ -406,6 +458,26 @@ def _meta_calls():
                                          2.0, e((9,), **f64), 0.3),
             "sgl_prox", sgl_prox_work(9, 7, 8, 4), [(4, 9, 7)]),
     }
+
+
+def test_count_step_counts_a_dtensor_gather(no_default_group):
+    """``full_tensor()`` of a DTensor issues ``_c10d_functional`` gathers,
+    one per mesh dimension that splits it, the last mesh dimension's
+    first: each counted at its result."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    with dryrun.fake_world(4):
+        mesh = DeviceMesh("meta", torch.arange(4).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        local = torch.empty((4, 2), dtype=torch.float32, device="meta")
+        x = DTensor.from_local(local, mesh, (Shard(1), Shard(0)),
+                               run_check=False, shape=(8, 4),
+                               stride=(4, 1))
+        got = rl.count_step(lambda: x.full_tensor())
+    # (4, 2) -> (8, 2) over "model", then (8, 4) over "data"; f32
+    assert got["coll_all-gather"] == (8 * 2 + 8 * 4) * 4
+    assert got["collective_bytes"] == got["coll_all-gather"]
 
 
 @pytest.mark.parametrize("wrapper", list(_meta_calls()))

@@ -900,6 +900,58 @@ def test_demo_train_step_on_the_card_matches_the_cpu(hopper):
     assert int((d > 1e-3).sum()) <= 2e-4 * d.numel()
 
 
+def test_sharded_demo_steps_on_nccl_give_the_one_rank_bits(hopper):
+    """The sharded step on the one-rank NCCL mesh against
+    ``make_train_step`` on the card: 3 demo steps with SGL on, every
+    metric, parameter and moment bit for bit, the prox launched once per
+    FFN leaf per step in both."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import DEMO
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import copy_batch
+    from repro_torch.models import build
+    from repro_torch.train import make_train_step
+    from repro_torch.train.sgl_regularizer import SGLRegConfig
+    from repro_torch.train.train_step import (full_tree,
+                                              make_sharded_train_step)
+
+    api = build(DEMO)
+    reg = SGLRegConfig(lam=3e-4)
+    made = not dist.is_initialized()
+    mesh = make_test_mesh(hopper)
+    try:
+        init1, step1 = make_train_step(api, lr=LM_LR, sgl_cfg=reg,
+                                       q_chunk=64)
+        init2, shard, step2 = make_sharded_train_step(
+            api, mesh, global_batch=16, lr=LM_LR, sgl_cfg=reg, q_chunk=64)
+        m1 = api.init_params(torch.Generator().manual_seed(0),
+                             dtype=torch.float32, device=hopper)
+        s1 = init1(m1)
+        p2 = shard(api.init_params(torch.Generator().manual_seed(0),
+                                   dtype=torch.float32, device=hopper))
+        s2 = init2(p2)
+        for i in range(3):
+            batch = {"tokens": torch.as_tensor(copy_batch(i, 16, 64,
+                                                          DEMO.vocab),
+                                               device=hopper)}
+            _util.reset_launch_counts()
+            m1, s1, a = step1(m1, s1, batch)
+            one = _util.launch_counts()["sgl_prox"]
+            _util.reset_launch_counts()
+            p2, s2, c = step2(p2, s2, batch)
+            assert (one, _util.launch_counts()["sgl_prox"]) == (4, 4)
+            assert all(torch.equal(a[k], c[k]) for k in a)
+        state, ost = full_tree(p2, s2)
+        want = m1.state_dict()
+        assert all(torch.equal(want[k], state[k]) for k in want)
+        assert all(torch.equal(s1.mu[k], ost.mu[k])
+                   and torch.equal(s1.nu[k], ost.nu[k]) for k in want)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # The dry run's meta branches against the card: what a wrapper counts on a
 # meta tensor is what it launches on the card

@@ -1,9 +1,9 @@
 """The port's training driver (``python -m repro_torch.launch.train``)
 on the CPU: LM mode with checkpoints, a restart that resumes at the saved
 step (the resumed run gives the uninterrupted run's losses and parameters
-bit for bit), the production mesh refused in LM mode, and ``--solver``
-against the JAX package's ``run_solver`` (the same FISTA steps, rounds,
-active and screened groups)."""
+bit for bit), the production mesh refused outside a world of 256 ranks,
+and ``--solver`` against the JAX package's ``run_solver`` (the same FISTA
+steps, rounds, active and screened groups)."""
 import contextlib
 import io
 import re
@@ -58,9 +58,16 @@ def test_launch_train_resumes_at_the_saved_step(tmp_path, one_thread):
 
 
 def test_launch_train_rejects_the_production_mesh_on_one_rank(tmp_path):
-    with pytest.raises(ValueError, match="LM training across ranks is not "
-                       "ported"):
+    """LM mode trains across ranks on the production mesh, which needs a
+    world of 256: from one process (no torchrun world) it raises
+    ``make_production_mesh``'s world-size message."""
+    import torch.distributed as dist
+
+    made = not dist.is_initialized()
+    with pytest.raises(ValueError, match=r"needs a world of 256 ranks, "
+                       r"got 1"):
         _train(tmp_path, 1, "--production-mesh")
+    assert not (made and dist.is_initialized())   # no world was started
 
 
 SOLVER_ARGS = ["--solver", "--n", "25", "--p", "80", "--groups", "10",

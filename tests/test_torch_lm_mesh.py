@@ -142,3 +142,137 @@ def test_production_mesh_needs_its_world(multi_pod):
     need = 512 if multi_pod else 256
     with pytest.raises(ValueError, match=f"world of {need} ranks, got 1"):
         tmesh.make_production_mesh(multi_pod=multi_pod, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# LM training across ranks: port-layout leaf specs, the batch split, and
+# the world started from torchrun's environment
+# ---------------------------------------------------------------------------
+
+def _port_of(entries, how, stacked):
+    """The reference's sanitized leaf spec carried to the port's layout:
+    the stack's entry dropped, "T" swaps the last two, "conv" (W, C) ->
+    (C, 1, W)."""
+    e = list(entries[1:] if stacked else entries)
+    if how == "conv":
+        return (e[1], None, e[0])
+    if how == "T":
+        e[-2], e[-1] = e[-1], e[-2]
+    return tuple(e)
+
+
+@pytest.mark.parametrize("sizes", MESHES, ids=lambda s: "x".join(
+    map(str, s.values())))
+@pytest.mark.parametrize("name", sorted(SPECS) + ["demo"])
+def test_lm_param_specs_are_the_references_in_the_port_layout(name, sizes):
+    """Each port leaf's spec (``lm_param_specs``) against the reference's
+    spec of its leaf, translated and sanitized by the reference's own
+    functions on the reference's leaf shape (a stack's included), carried
+    through the leaf map."""
+    import torch
+
+    from repro_torch.convert import (_port_leaf, _reference_leaves,
+                                     lm_reference_structs)
+
+    jcfg, cfg = configs(name)
+    multi_pod = "pod" in sizes
+    api = build(cfg)
+    model = api.init_params(dtype=torch.float32, device="meta")
+    got = tmesh.lm_param_specs(api, model, sizes, multi_pod=multi_pod)
+    ref_specs = jbuild(jcfg).param_specs(sizes["model"])
+    ref_structs = lm_reference_structs(cfg, model)
+    seen = set()
+    for path, n_stack in _reference_leaves(cfg):
+        spec, struct = ref_specs, ref_structs
+        for k in path:
+            i = int(k) if k.isdigit() else k
+            spec, struct = spec[i], struct[i]
+        want = jmesh.sanitize_spec(
+            jmesh.translate_spec(spec, multi_pod=multi_pod),
+            tuple(struct.shape), _jmesh(sizes))
+        want = tuple(want) + (None,) * (len(struct.shape) - len(want))
+        keys = ([(path[0], str(i)) + path[1:] for i in range(n_stack)]
+                if n_stack else [path])
+        for k in keys:
+            leaf, how = _port_leaf(k)
+            port = _port_of(want, how, bool(n_stack))
+            assert tuple(got[leaf]) == port + (None,) * (
+                model.get_parameter(leaf).ndim - len(port)), leaf
+            seen.add(leaf)
+    assert seen == {k for k, _ in model.named_parameters()}
+
+
+@pytest.mark.parametrize("batch,sizes,axes,rows,repeat", [
+    (256, {"data": 16, "model": 16}, ("data", "model"), 1, 1),
+    (32, {"data": 16, "model": 16}, ("data",), 2, 16),
+    (128, {"data": 16, "model": 16}, ("data",), 8, 16),
+    (256, {"pod": 2, "data": 16, "model": 16}, ("pod", "data"), 8, 16),
+    (7, {"data": 16, "model": 16}, (), 7, 256),
+    (4, {"data": 2, "model": 2}, ("data", "model"), 1, 1),
+    (6, {"data": 2, "model": 2}, ("data",), 3, 2),
+])
+def test_batch_split(batch, sizes, axes, rows, repeat):
+    """The longest prefix of (pod, data, model) whose size divides the
+    batch, rank 0's rows (``mesh`` as {axis: size} needs a coordinate: the
+    dry run's fake group gives rank 0's)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    world = int(np.prod(list(sizes.values())))
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        mesh = DeviceMesh("meta", torch.arange(world).reshape(
+            tuple(sizes.values())), mesh_dim_names=tuple(sizes))
+        split = tmesh.batch_split(batch, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert split == (axes, rows, 0, repeat)
+
+
+INIT_WORLD = """
+import torch.distributed as dist
+from repro_torch.launch.mesh import init_world, make_production_mesh
+assert init_world("cpu")
+print(dist.get_world_size(), dist.get_rank(), dist.get_backend())
+assert not init_world("cpu")          # a group exists: left alone
+try:
+    make_production_mesh(device="cpu")
+except ValueError as e:
+    print(e)
+dist.destroy_process_group()
+"""
+
+
+def test_init_world_from_torchrun_environment(monkeypatch):
+    """``init_world`` in a subprocess with torchrun's variables for a world
+    of 1 (``env://`` on a free loopback port): a gloo group of one rank,
+    and the production mesh's world-size message from it.  Outside
+    torchrun it starts nothing."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), WORLD_SIZE="1",
+               RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    out = subprocess.run([sys.executable, "-c", INIT_WORLD], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert lines[0] == "1 0 gloo"
+    assert "needs a world of 256 ranks, got 1" in lines[1]
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    had = dist.is_initialized()
+    assert tmesh.init_world("cpu") is False
+    assert dist.is_initialized() == had
