@@ -18,6 +18,13 @@ paths through ``SGLSession(problem, SolverConfig(...)).solve_path(...)``:
 * the least-squares GAP path on the paper's climate configuration at full
   width (n = 814, p = 73,584, G = 10,512 groups of 7) and on the paper's
   synthetic configuration (n = 100, p = 10,000);
+* the paper's Section 7.1 comparison on the climate configuration at full
+  width (the ``paper`` phase): ``examples/climate_path_torch.py``'s
+  ``run()``, the GAP rule against no screening over the T = 20 grid with
+  the example's config, each rule's wall-clock, epochs, rounds, gathers and
+  launches, GAP's speed-up, and the support map's active grid points;
+  every point that stopped before ``max_epochs`` certified within tol, and
+  the two rules' primal objectives within tol wherever both converged;
 * the logistic GAP path on the climate configuration at full width, its
   response binarized at the median;
 * the paper's rule family (static, dynamic, DST3 and the unsafe strong rule)
@@ -118,6 +125,7 @@ T_START = time.perf_counter()
 # the plain PyTorch backends on the card; ``kernels``: the kernels the path
 # must launch, ``idle``: those it must not (PERF.md says why each is cut).
 LSQ_KERNELS = ("corr", "dual_norm", "bcd_epoch")
+CLIMATE_LON, CLIMATE_LAT = 144, 73    # the NCEP/NCAR grid, 2.5 degrees
 CLIMATE = dict(name="climate", tau=0.4, tol=1e-6, T=20, delta=2.5,
                solve=20, plain=8, kernels=LSQ_KERNELS,
                idle=("bcd_epoch_logistic", "screening_scores"))
@@ -134,6 +142,14 @@ SYNTHETIC = dict(name="synthetic", tau=0.2, tol=1e-8, T=40, delta=3.0,
 SYNTHETIC_RULES = dict(name="synthetic-rules", tau=0.2, tol=1e-8, T=40,
                        delta=3.0, solve=8, plain=8,
                        rules=("static", "dynamic", "dst3"))
+# The paper phase: Section 7.1's comparison, the GAP rule against no
+# screening, through examples/climate_path_torch.py's run() on the climate
+# phase's full-width problem, with the example's config (tol 1e-6,
+# max_epochs 2,000, the T = 20 grid over 2.5 decades).  ``points``: the
+# grid's leading points both rules solve (None: all 20).
+PAPER = dict(name="paper", points=None,
+             kernels=LSQ_KERNELS,
+             idle=("bcd_epoch_logistic", "screening_scores", "sgl_prox"))
 # The serving phases: the climate grid's leading points (the climate phase's
 # plain rerun holds the served path's masks), the synthetic grid's leading
 # points in checkpointed segments, the epoch budget that trips mid-path, and
@@ -1326,6 +1342,95 @@ def run_path(config, problem):
     pres = plain_rerun(label, problem, cfg, lambdas[:n_plain], res, m,
                        margins_at)
     return counts, res, wall, lambdas, pres
+
+
+def run_paper(config, problem, n_lon: int, n_lat: int):
+    """The paper's Section 7.1 comparison at full width: the example's
+    ``run()`` solves the climate path under each rule (one session per rule,
+    each path timed to a device synchronise), then the support map from the
+    GAP session's first 8 points.  Every launch count is zeroed just before
+    and read just after.  Raises unless every point that stopped before
+    ``max_epochs`` has its gap <= tol, the two rules' primal objectives
+    agree within tol wherever both converged, each rule's path launched the
+    least-squares kernels, and the phase no other kernel.  Returns (launch
+    counts, the phase's record)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _util
+
+    path = ROOT / "examples" / "climate_path_torch.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    label, tol, cap = config["name"], example.TOL, example.MAX_EPOCHS
+
+    torch.cuda.synchronize()
+    _util.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = example.run(problem.n, n_lon, n_lat, problem=problem,
+                      points=config["points"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _util.launch_counts()
+
+    rules, record = out["rules"], {}
+    for rule, r in rules.items():
+        epochs, gaps = np.asarray(r["epochs"]), np.asarray(r["gaps"])
+        betas = r["betas"]
+        if not (np.isfinite(betas).all() and np.isfinite(gaps).all()):
+            raise AssertionError(f"{label} {rule}: non-finite path output")
+        if betas.shape != (len(out["lambdas"]), problem.G, problem.ng):
+            raise AssertionError(f"{label} {rule}: betas of shape "
+                                 f"{betas.shape}")
+        stopped = np.flatnonzero(epochs >= cap)
+        over = np.flatnonzero((epochs < cap) & (gaps > tol))
+        if over.size:
+            raise AssertionError(f"{label} {rule}: points {over.tolist()} "
+                                 f"stopped before max_epochs with gaps "
+                                 f"{gaps[over].tolist()} above tol {tol}")
+        for name in config["kernels"]:
+            if r["launches"][name] <= 0:
+                raise AssertionError(f"{label} {rule}: kernel {name} never "
+                                     f"launched")
+        if r["n_transpose_copies"] != 0:
+            raise AssertionError(f"{label} {rule}: transposed copies")
+        record[rule] = dict(
+            wall_s=r["seconds"], epochs=int(epochs.sum()),
+            epochs_per_lambda=epochs.tolist(), rounds=r["n_rounds"],
+            gathers=r["n_gathers"],
+            seq_screened=int(np.sum(r["seq_screened"])),
+            launches={k: r["launches"][k] for k in config["kernels"]},
+            stopped_at_max_epochs=stopped.tolist(),
+            max_gap=float(gaps.max()),
+            peak_gib=(r["peak_bytes"] / 2**30
+                      if r["peak_bytes"] is not None else None))
+    gap, none = rules["gap"], rules["none"]
+    both = ((np.asarray(gap["epochs"]) < cap)
+            & (np.asarray(none["epochs"]) < cap))
+    dP = np.abs(np.asarray(gap["primals"]) - np.asarray(none["primals"]))
+    if (dP[both] > tol).any():
+        raise AssertionError(f"{label}: |P_gap - P_none| "
+                             f"{dP[both].max():.3e} above tol {tol} at "
+                             f"points {np.flatnonzero(both & (dP > tol))}")
+    n_pts = len(out["lambdas"])
+    record.update(
+        points=f"the T = {example.T} grid's first {n_pts}",
+        lam_max=out["lam_max"], tol=tol, max_epochs=cap,
+        speedup_wall=none["seconds"] / gap["seconds"],
+        speedup_epochs=(sum(none["epochs"]) / sum(gap["epochs"])
+                        if sum(gap["epochs"]) else None),
+        max_abs_dP_converged=float(dP[both].max()) if both.any() else None,
+        map_active=out["map"]["active"], map_points=n_lon * n_lat,
+        launches={k: counts[k] for k in config["kernels"]},
+        seconds=seconds)
+    phase_line(label, record)
+    for name in config["idle"]:
+        if counts[name] != 0:
+            raise AssertionError(f"{label}: kernel {name} launched off its "
+                                 f"path")
+    return counts, record
 
 
 def run_rules(config, problem):
@@ -2810,7 +2915,8 @@ def main() -> int:
         f"{_build.BUILD_DIR.relative_to(ROOT)}")
 
     t0 = time.perf_counter()
-    X, y, _, sizes = make_climate_like(n=814, n_lon=144, n_lat=73, n_vars=7)
+    X, y, _, sizes = make_climate_like(n=814, n_lon=CLIMATE_LON,
+                                       n_lat=CLIMATE_LAT, n_vars=7)
     climate = make_problem(X, y, sizes, tau=CLIMATE["tau"])
     del X
     # The logistic path's response: y binarized at its median (balanced
@@ -2843,6 +2949,7 @@ def main() -> int:
 
     counts, _, _, climate_grid, climate_plain = run_path(CLIMATE, climate)
     add(counts)
+    add(run_paper(PAPER, climate, CLIMATE_LON, CLIMATE_LAT)[0])
     add(run_path(CLIMATE_LOGISTIC, climate_logistic)[0])
     del climate_logistic
     counts, serve_climate = run_serve_climate(climate, climate_grid,

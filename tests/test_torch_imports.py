@@ -25,7 +25,9 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "tools" / "profile_lm_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
-    ROOT / "examples" / "train_lm_sgl_torch.py"]
+    ROOT / "examples" / "train_lm_sgl_torch.py",
+    ROOT / "examples" / "climate_path_torch.py",
+    ROOT / "examples" / "serve_sgl_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -222,6 +224,26 @@ def test_launch_train_without_device_raises_without_gpu():
             timeout=120)
         assert out.returncode != 0, out.stdout
         assert "no CUDA device is available" in out.stderr
+
+
+@pytest.mark.parametrize("script", ["climate_path_torch.py",
+                                    "serve_sgl_torch.py"])
+def test_section_7_examples_without_device_raise_without_gpu(script):
+    """Each example's ``run()`` and its script default to the card."""
+    _no_cuda()
+    import importlib.util
+
+    path = ROOT / "examples" / script
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.run()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, str(path)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0, out.stdout
+    assert "no CUDA device is available" in out.stderr
 
 
 def test_configs_registry_keeps_the_reference_messages():
