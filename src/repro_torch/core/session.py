@@ -36,7 +36,11 @@ Tracing (:mod:`repro_torch.obs.trace`, off by default): the reference's
 spans ``path → lambda → round → epoch_block → kernel_launch`` at the same
 sites; ``kernel_launch`` wraps the dispatches on the ``"cuda"`` backend.  A
 span's attributes are values the host already holds: a span never reads a
-tensor back or synchronises the device.
+tensor back or synchronises the device.  The port adds ``sync.block``,
+``sync.round`` (each blocking transfer, through
+:func:`~repro_torch.core.solver.host_sync`) and ``gather`` (a gather-cache
+miss); ``PathResult.n_syncs`` counts the transfers and ``group_steps`` the
+BCD group steps dispatched, with tracing off too.
 
 Fault protocol (:mod:`repro_torch.faults`), as in the reference: a
 certified round whose gap is not finite is discarded — its masks and dual
@@ -90,7 +94,11 @@ from .solver import (
     bcd_epochs,
     bcd_epochs_loss,
     check_rule_loss,
+    host_sync,
     resolve_backend,
+    sync_count,
+    to_device,
+    to_numpy,
 )
 from ..kernels import ops as kops
 from ..kernels import ref as kref
@@ -188,6 +196,10 @@ class PathResult(NamedTuple):
     round_flops: float = 0.0       # ~4 n p_buffer per round attempted
     n_fused_epoch_launches: int = 0  # epoch blocks run as one epoch-kernel
                                    #   launch (solver backend "cuda")
+    n_syncs: int = 0               # blocking host<->device transfers of the
+                                   #   path (solver.host_sync)
+    group_steps: int = 0           # BCD group steps dispatched: live groups
+                                   #   x lambdas x epochs, over launches
     batched_lambdas: int = 0       # path points solved in a batched run
     rule_name: str = "gap"
     certificates_safe: bool = True
@@ -238,6 +250,11 @@ def _fire_epoch_launch_fault() -> None:
     for s in _fire_fault("kernels.epochs"):
         if s.kind == "raise":
             raise KernelLaunchError("injected epoch-kernel launch failure")
+
+
+def _gap_of(res) -> float:
+    """A round's gap read to the host (one blocking transfer)."""
+    return host_sync(float, res.gap)
 
 
 def _problem_to(problem: SGLProblem, device: torch.device) -> SGLProblem:
@@ -322,6 +339,9 @@ class SGLSession:
         self._rounds_since_full = 0
         self.batched_lambdas = 0
         self.fused_epoch_launches = 0
+        # BCD group steps dispatched: live (gathered, unpadded) groups x
+        # lambdas x epochs of each launch.
+        self.group_steps = 0
         # Fault accounting and the per-request budget: certified rounds
         # discarded for a non-finite gap, launches demoted to a plain version
         # (none: a failed launch raises), and the optional SolveBudget the
@@ -354,7 +374,8 @@ class SGLSession:
         """lambda_max = Omega^D(X^T rho_0), computed once per session
         (rho_0 = -grad F(0): y for least squares, y - 1/2 logistic)."""
         if self._lam_max is None:
-            self._lam_max = float(sgl.lambda_max_loss(self.problem, self.loss))
+            lam_max = sgl.lambda_max_loss(self.problem, self.loss)
+            self._lam_max = host_sync(float, lam_max)
         return self._lam_max
 
     @property
@@ -368,7 +389,7 @@ class SGLSession:
         return self._xt_pre
 
     def _mask(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return to_device(np.ascontiguousarray(a), self.device)
 
     def _certified_round(self, beta, lam_: float, lam_max: float, rule,
                          caches: Optional[SolveCaches] = None) -> RoundResult:
@@ -411,7 +432,7 @@ class SGLSession:
                 # Real corruption in resid/corr/theta reaches the gap through
                 # the same dataflow: the gap stays the corruption detector.
                 res = res._replace(gap=res.gap * bad)
-        if np.isfinite(float(res.gap)):
+        if np.isfinite(_gap_of(res)):
             caches.set_refs(problem, resid, terms)
         else:
             self.nonfinite_rounds += 1
@@ -438,7 +459,7 @@ class SGLSession:
                     self._mask(group_active), caches.ref_terms,
                     caches.resid_ref, lam_, self.backend, xt_rows)
         self.round_flops += 4.0 * problem.n * Xt.shape[0] * problem.ng
-        if not bool(valid):
+        if not host_sync(bool, valid):
             self.compact_fallbacks += 1
             return None
         self.rounds += 1
@@ -470,7 +491,7 @@ class SGLSession:
         if beta is None:
             beta = torch.zeros((problem.G, problem.ng), dtype=problem.X.dtype,
                                device=self.device)
-        beta = torch.as_tensor(beta, dtype=problem.X.dtype).to(self.device)
+        beta = to_device(beta, self.device, problem.X.dtype)
         return self._certified_round(beta, float(lam_), self.lam_max, rule)
 
     def solve(self, lam_: float, beta0=None, *,
@@ -509,7 +530,7 @@ class SGLSession:
             if ce != "auto":
                 raise ValueError(f"unknown check_every: {ce!r}")
             warm = (first_round is not None
-                    and float(first_round.gap) <= cfg.warm_gap_factor * tol)
+                    and _gap_of(first_round) <= cfg.warm_gap_factor * tol)
             ce = 1 if warm else None
 
         G, ng = problem.G, problem.ng
@@ -517,7 +538,7 @@ class SGLSession:
         dev = self.device
         tau = problem.tau
         beta = (torch.zeros((G, ng), dtype=dtype, device=dev) if beta0 is None
-                else torch.as_tensor(beta0, dtype=dtype).to(dev))
+                else to_device(beta0, dev, dtype))
         lam_ = float(lam_)
         check = f_ce if ce is None else max(1, int(ce))
         check = max(1, min(check, f_ce * cfg.inner_rounds))
@@ -525,7 +546,7 @@ class SGLSession:
         if lam_max is None:
             lam_max = self.lam_max
 
-        fm_np = problem.feat_mask.cpu().numpy()
+        fm_np = host_sync(to_numpy, problem.feat_mask)
         group_active = fm_np.any(axis=-1)
         feat_active = fm_np.copy()
         n_real_groups = int(group_active.sum())
@@ -538,8 +559,8 @@ class SGLSession:
                                                    float(lam_max))
             pre = scr.screen(problem, scr.Sphere(center, radius),
                              backend=self.backend, xt_pre=self.xt_pre)
-            group_active &= pre.group_active.cpu().numpy()
-            feat_active &= pre.feat_active.cpu().numpy()
+            group_active &= host_sync(to_numpy, pre.group_active)
+            feat_active &= host_sync(to_numpy, pre.feat_active)
             beta = beta * self._mask(feat_active).to(dtype)
 
         gap_history: list = []
@@ -584,7 +605,7 @@ class SGLSession:
                     round_res = self._certified_round(beta, lam_, lam_max,
                                                       rule, caches=caches)
                     if (not cfg.compact and lsq
-                            and np.isfinite(float(round_res.gap))):
+                            and np.isfinite(_gap_of(round_res))):
                         # Reset the carried residual's drift every full round
                         # (a corrupted round left the previous reference).
                         resid_nc = caches.resid_ref.clone()
@@ -592,11 +613,11 @@ class SGLSession:
                         # The round's reference is rho, not z: recompute the
                         # carried predictor from beta (same drift reset).
                         z_nc = None
-            if bool(round_res.compact) and float(round_res.gap) <= tol:
+            if bool(round_res.compact) and _gap_of(round_res) <= tol:
                 # The reported gap is always full-problem: re-confirm.
                 round_res = self._certified_round(beta, lam_, lam_max, rule,
                                                   caches=caches)
-            gap_r, theta_r = float(round_res.gap), round_res.theta
+            gap_r, theta_r = _gap_of(round_res), round_res.theta
             g_act, f_act = round_res.group_active, round_res.feat_active
             round_res = None
             gap_history.append((epochs_done, gap_r))
@@ -611,7 +632,7 @@ class SGLSession:
                         f"{nonfinite_run} consecutive non-finite certified "
                         f"rounds at lambda={lam_:.3e}; rewind could not "
                         "recover a finite trajectory")
-                if not bool(torch.isfinite(beta).all()):
+                if not host_sync(bool, torch.isfinite(beta).all()):
                     beta = (best_beta if best_beta is not None
                             else torch.zeros((G, ng), dtype=dtype, device=dev))
                     resid_nc = None
@@ -638,8 +659,8 @@ class SGLSession:
             if rule.is_dynamic:
                 n_g0 = int(group_active.sum())
                 n_f0 = int(feat_active.sum())
-                group_active &= g_act.cpu().numpy()
-                feat_active &= f_act.cpu().numpy()
+                group_active &= host_sync(to_numpy, g_act)
+                feat_active &= host_sync(to_numpy, f_act)
                 feat_active &= group_active[:, None]
                 masks_changed = (int(group_active.sum()) != n_g0
                                  or int(feat_active.sum()) != n_f0)
@@ -662,7 +683,8 @@ class SGLSession:
             epochs_before = epochs_done
             fused = self.solver_backend == "cuda" and self._fused_epochs
             if cfg.compact:
-                _, take, Xt, Lg, w, gmask = caches.gather(problem, group_active)
+                idx, take, Xt, Lg, w, gmask = caches.gather(problem,
+                                                            group_active)
                 xt_rows = None
                 if self.solver_backend == "cuda":
                     xt_rows = caches.gather_xt_rows(problem, group_active,
@@ -684,6 +706,7 @@ class SGLSession:
                             tol, self.loss, check, max_blocks,
                             self.solver_backend, xt_rows)
                 epochs_done += check * int(k_done)
+                self.group_steps += len(idx) * check * int(k_done)
                 if fused:
                     self.fused_epoch_launches += int(k_done)
             else:
@@ -726,6 +749,7 @@ class SGLSession:
                                 tau, lam_, problem.y, self.loss, f_ce)
                 if fused:
                     self.fused_epoch_launches += 1
+                self.group_steps += int(group_active.sum()) * f_ce
                 epochs_done += f_ce
 
             if self.budget is not None:
@@ -768,19 +792,21 @@ class SGLSession:
         G, ng = problem.G, problem.ng
         y = problem.y
         lam_max = self.lam_max
-        fm_full = problem.feat_mask.cpu().numpy()
+        fm_full = host_sync(to_numpy, problem.feat_mask)
         real_grp = fm_full.any(axis=-1)
         base_g = real_grp & np.logical_or.reduce(
-            [c.group_active.cpu().numpy() for c in certs])
+            [host_sync(to_numpy, c.group_active) for c in certs])
 
-        g_act = [real_grp & c.group_active.cpu().numpy() for c in certs]
-        f_act = [fm_full & c.feat_active.cpu().numpy()
-                 & c.group_active.cpu().numpy()[:, None] for c in certs]
-        gap_b = [float(c.gap) for c in certs]
+        g_act = [real_grp & host_sync(to_numpy, c.group_active)
+                 for c in certs]
+        f_act = [fm_full & host_sync(to_numpy, c.feat_active)
+                 & host_sync(to_numpy, c.group_active)[:, None]
+                 for c in certs]
+        gap_b = [_gap_of(c) for c in certs]
         done = np.array([g <= tol for g in gap_b])
         gap_hist = [[(0, gap_b[b])] for b in range(B)]
         epochs_b = np.zeros(B, np.int64)
-        beta0_t = torch.as_tensor(beta0, dtype=dtype).to(dev)
+        beta0_t = to_device(beta0, dev, dtype)
         final_beta = [beta0_t if done[b] else None for b in range(B)]
         final_g = [real_grp.copy() if done[b] else None for b in range(B)]
         final_f = [fm_full.copy() if done[b] else None for b in range(B)]
@@ -800,10 +826,10 @@ class SGLSession:
         if done.all():
             return results()
 
-        _, take, Xt, Lg, w, gmask = caches.gather(problem, base_g)
-        take_np = take.cpu().numpy()
+        idx, take, Xt, Lg, w, gmask = caches.gather(problem, base_g)
+        take_np = host_sync(to_numpy, take)
         Lg_eff = Lg * gmask
-        lam_b = torch.as_tensor(np.asarray(lams, np.float64), dtype=dtype).to(dev)
+        lam_b = to_device(np.asarray(lams, np.float64), dev, dtype)
         n_real_groups = int(real_grp.sum())
         n_base_act = int(base_g.sum())
         xt_rows = None
@@ -812,8 +838,7 @@ class SGLSession:
 
         def gather_masks():
             masks = np.ascontiguousarray(np.stack(f_act)[:, take_np])
-            return (torch.as_tensor(masks, dtype=dtype).to(dev)
-                    * gmask[None, :, None])
+            return to_device(masks, dev, dtype) * gmask[None, :, None]
 
         fm_b = gather_masks()
         bsub = torch.stack([(beta0_t * self._mask(f_act[b]).to(dtype))[take]
@@ -844,12 +869,14 @@ class SGLSession:
                 else:
                     bsub, resid = kref.bcd_epochs_ref(
                         Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
+            self.group_steps += len(idx) * B * block
             step += block
             if self.budget is not None:
                 self.budget.note_epochs(block * B)
-            red = _batch_reduced_gaps(Xt, fm_b, bsub, resid, w, y, tau, lam_b,
-                                      backend=self.solver_backend,
-                                      xt_rows=xt_rows).cpu().numpy()
+            red_t = _batch_reduced_gaps(Xt, fm_b, bsub, resid, w, y, tau,
+                                        lam_b, backend=self.solver_backend,
+                                        xt_rows=xt_rows)
+            red = host_sync(to_numpy, red_t, site="sync.block")
             changed = False
             for b in range(B):
                 if done[b]:
@@ -874,12 +901,12 @@ class SGLSession:
                     # (the gather key coincides with the batch buffer).
                     rres = self._compact_round(beta_full, lam_f, base_g,
                                                f_act[b], caches)
-                    if rres is not None and float(rres.gap) <= tol:
+                    if rres is not None and _gap_of(rres) <= tol:
                         rres = None        # full-round confirmation below
                 if rres is None:
                     rres = self._certified_round(beta_full, lam_f, lam_max,
                                                  self.rule, caches=caches)
-                gap_r = float(rres.gap)
+                gap_r = _gap_of(rres)
                 gap_hist[b].append((step, gap_r))
                 if not np.isfinite(gap_r):
                     # Corrupted round: adopt nothing.  Rounds leave the batch
@@ -897,8 +924,8 @@ class SGLSession:
                 if crossed:
                     hold_b[b] = step + f_ce
                 n_g0, n_f0 = g_act[b].sum(), f_act[b].sum()
-                g_act[b] &= rres.group_active.cpu().numpy()
-                f_act[b] &= rres.feat_active.cpu().numpy()
+                g_act[b] &= host_sync(to_numpy, rres.group_active)
+                f_act[b] &= host_sync(to_numpy, rres.feat_active)
                 f_act[b] &= g_act[b][:, None]
                 if g_act[b].sum() != n_g0 or f_act[b].sum() != n_f0:
                     changed = True
@@ -947,6 +974,7 @@ class SGLSession:
     def _solve_path_impl(self, lambdas, *, T, delta, sequential,
                          keep_results, batch_lambdas, beta0,
                          prev_epochs) -> PathResult:
+        syncs0 = sync_count()
         cfg = self.config
         problem = self.problem
         rule = self.rule
@@ -958,7 +986,7 @@ class SGLSession:
 
         G, ng = problem.G, problem.ng
         dtype = problem.X.dtype
-        fm_np = problem.feat_mask.cpu().numpy()
+        fm_np = host_sync(to_numpy, problem.feat_mask)
         n_feat = int(fm_np.sum())
         n_groups = int(fm_np.any(axis=-1).sum())
         rounds0, compact0, full0 = (self.rounds, self.compact_rounds,
@@ -966,14 +994,15 @@ class SGLSession:
         flops0 = self.round_flops
         fused0 = self.fused_epoch_launches
         batched0 = self.batched_lambdas
+        steps0 = self.group_steps
         copies0 = kops.transpose_copy_count()
 
         caches = self.caches if sequential else None
+        gathers0 = caches.n_gathers if caches is not None else 0
         n_gathers_total = 0
 
         beta = (torch.zeros((G, ng), dtype=dtype, device=self.device)
-                if beta0 is None
-                else torch.as_tensor(beta0, dtype=dtype).to(self.device))
+                if beta0 is None else to_device(beta0, self.device, dtype))
         betas = np.zeros((T_, G, ng), np.float64)
         gaps = np.zeros(T_, float)
         epochs = np.zeros(T_, np.int64)
@@ -987,7 +1016,7 @@ class SGLSession:
         screening_rule = rule.is_dynamic
 
         def record(t, res, first_round, n_seq_active):
-            betas[t] = res.beta.cpu().numpy()
+            betas[t] = host_sync(to_numpy, res.beta)
             gaps[t] = float(res.gap)
             epochs[t] = res.n_epochs
             g_act[t] = np.asarray(res.group_active)
@@ -995,9 +1024,10 @@ class SGLSession:
             if first_round is not None and screening_rule:
                 # Report the sequential certificate even when the solve
                 # converged on that very round without applying it.
-                seq_g = first_round.group_active.cpu().numpy()
+                seq_g = host_sync(to_numpy, first_round.group_active)
                 g_act[t] &= seq_g
-                f_act[t] &= first_round.feat_active.cpu().numpy() & g_act[t][:, None]
+                f_act[t] &= (host_sync(to_numpy, first_round.feat_active)
+                             & g_act[t][:, None])
             gfrac[t] = g_act[t].sum() / max(n_groups, 1)
             ffrac[t] = f_act[t].sum() / max(n_feat, 1)
             if screening_rule:
@@ -1024,35 +1054,37 @@ class SGLSession:
             n_seq_active = n_groups
             if sequential and rule.supports_sequential:
                 first_round = self.screen(lam_, beta, rule=rule)
-                if not np.isfinite(float(first_round.gap)):
+                if not np.isfinite(_gap_of(first_round)):
                     # Corrupted sequential round: refuse its masks and re-run
                     # it once at the same beta; still bad, solve this lambda
                     # with no sequential certificate at all.
                     first_round = self.screen(lam_, beta, rule=rule)
-                    if not np.isfinite(float(first_round.gap)):
+                    if not np.isfinite(_gap_of(first_round)):
                         first_round = None
                 if first_round is not None and screening_rule:
-                    n_seq_active = int(first_round.group_active.sum())
+                    n_active = first_round.group_active.sum()
+                    n_seq_active = host_sync(int, n_active)
                     seq_scr[t] = n_groups - n_seq_active
 
             warm_here = (first_round is not None
-                         and (float(first_round.gap)
+                         and (_gap_of(first_round)
                               <= cfg.warm_gap_factor * cfg.tol
                               or 0 < ep_prev <= 4 * cfg.f_ce))
-            if batch_ok and warm_here and float(first_round.gap) > cfg.tol:
+            if batch_ok and warm_here and _gap_of(first_round) > cfg.tol:
                 # Probe ahead: the current beta certifies later lambdas too;
                 # a probe joins while the union's bucket stays within 2x.
                 certs = [first_round]
-                union_g = first_round.group_active.cpu().numpy().copy()
+                union_g = host_sync(to_numpy,
+                                    first_round.group_active).copy()
                 bucket0 = _bucket(max(int(union_g.sum()), 1))
                 while len(certs) < batch_lambdas and t + len(certs) < T_:
                     k = t + len(certs)
                     ck = self.screen(float(lambdas[k]), beta, rule=rule)
-                    if not np.isfinite(float(ck.gap)):
+                    if not np.isfinite(_gap_of(ck)):
                         # A corrupted probe never enters the batch; lambda k
                         # re-certifies later from a warmer beta.
                         break
-                    cg = ck.group_active.cpu().numpy()
+                    cg = host_sync(to_numpy, ck.group_active)
                     if _bucket(max(int((union_g | cg).sum()), 1)) <= 2 * bucket0:
                         union_g |= cg
                         certs.append(ck)
@@ -1079,7 +1111,7 @@ class SGLSession:
 
             if cfg.check_every == "auto":
                 warm = (first_round is not None
-                        and float(first_round.gap)
+                        and _gap_of(first_round)
                         <= cfg.warm_gap_factor * cfg.tol)
                 warm |= 0 < ep_prev <= 4 * cfg.f_ce
                 check_t = 1 if warm else None
@@ -1115,7 +1147,7 @@ class SGLSession:
             group_active_frac=gfrac, feat_active_frac=ffrac,
             group_active=g_act, feat_active=f_act,
             seq_screened=seq_scr, dyn_screened=dyn_scr,
-            n_gathers=(caches.n_gathers if caches is not None
+            n_gathers=(caches.n_gathers - gathers0 if caches is not None
                        else n_gathers_total),
             results=results,
             n_rounds=self.rounds - rounds0,
@@ -1124,6 +1156,8 @@ class SGLSession:
             n_full_rounds=self.full_rounds - full0,
             round_flops=self.round_flops - flops0,
             n_fused_epoch_launches=self.fused_epoch_launches - fused0,
+            n_syncs=sync_count() - syncs0,
+            group_steps=self.group_steps - steps0,
             batched_lambdas=self.batched_lambdas - batched0,
             rule_name=rule.name,
             certificates_safe=rule.is_safe,

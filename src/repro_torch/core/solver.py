@@ -23,9 +23,18 @@ falls back to the plain path.
 PyTorch runs eagerly, so the reference's jitted programs become plain
 functions, and the jitted ``while_loop`` of :func:`_inner_rounds` a Python
 loop that reads the reduced gap after every block.
+
+Blocking transfers: every read of device data to the host and every copy
+of a host array to the device that a path makes goes through
+:func:`host_sync`, which spans it (``sync.block`` for the per-block
+reduced gap, ``sync.round`` for the others) and counts it per thread
+(:func:`sync_count`; ``PathResult.n_syncs`` is its difference over a path).
+The transfer itself is the statement it replaces: nothing is merged, moved
+or added.
 """
 from __future__ import annotations
 
+import threading
 import warnings
 from typing import NamedTuple, Optional
 
@@ -38,6 +47,7 @@ from .sgl import SGLProblem
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..losses import Loss, resolve_loss
+from ..obs import trace as obs_trace
 from ..obs.metrics import REGISTRY
 from ..rules import RuleState, ScreeningRule, resolve_rule
 
@@ -54,11 +64,56 @@ __all__ = [
     "bcd_epochs",
     "bcd_epochs_loss",
     "check_rule_loss",
+    "host_sync",
     "resolve_backend",
     "screen_round",
+    "sync_count",
+    "to_device",
+    "to_numpy",
 ]
 
 BACKENDS = ("auto", "torch", "cuda")
+
+
+class _Tallies(threading.local):
+    """Per-thread count of blocking transfers (a path runs on one thread)."""
+
+    syncs = 0
+
+
+_TALLIES = _Tallies()
+
+
+def sync_count() -> int:
+    """Blocking transfers made on this thread so far."""
+    return _TALLIES.syncs
+
+
+def host_sync(fn, *args, site: str = "sync.round"):
+    """``fn(*args)``, a blocking transfer between the host and the device,
+    under a ``site`` span and counted once (:func:`sync_count`)."""
+    _TALLIES.syncs += 1
+    with obs_trace.span(site):
+        return fn(*args)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor read back to a host array."""
+    return t.cpu().numpy()
+
+
+def _upload(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=dtype).to(device)
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype=dtype).to(device)``; a blocking upload
+    (:func:`host_sync`) unless ``a`` is already a tensor on ``device``."""
+    dev = torch.device(device)
+    if (isinstance(a, torch.Tensor) and a.device.type == dev.type
+            and dev.index in (None, a.device.index)):
+        return torch.as_tensor(a, dtype=dtype)
+    return host_sync(_upload, a, device, dtype)
 
 
 class RoundResult(NamedTuple):
@@ -123,7 +178,8 @@ class SolveCaches:
         self._sync_problem(problem)
         key = group_active.tobytes()
         if key != self.gather_key:
-            self.gather_val = _gather_static(problem, group_active)
+            with obs_trace.span("gather"):
+                self.gather_val = _gather_static(problem, group_active)
             self.gather_key = key
             self.n_gathers += 1
             _M_GATHERS.inc()
@@ -137,8 +193,9 @@ class SolveCaches:
         key = group_active.tobytes()
         if key != self.xt_rows_key:
             _, take, *_ = self.gather(problem, group_active)
-            self.xt_rows_val = kops.gather_transposed_rows(xt_pre, take,
-                                                           problem.ng)
+            with obs_trace.span("gather"):
+                self.xt_rows_val = kops.gather_transposed_rows(
+                    xt_pre, take, problem.ng)
             self.xt_rows_key = key
         return self.xt_rows_val
 
@@ -422,7 +479,8 @@ def _inner_rounds(Xt, Lg, w, y, beta, feat_active, take, gmask, tau: float,
             bsub, resid = bcd_epochs(Xt, Lg_eff, w, fmask, bsub, resid, tau,
                                      lam_, block_epochs)
         k += 1
-        gap = float(reduced_gap(bsub, resid))
+        gap_t = reduced_gap(bsub, resid)
+        gap = host_sync(float, gap_t, site="sync.block")
     delta = (bsub - bsub0) * fmask
     return beta.index_add(0, take, delta), k, gap
 
@@ -472,7 +530,8 @@ def _inner_rounds_loss(Xt, Lg, w, y, beta, feat_active, take, gmask,
             bsub, z = bcd_epochs_loss(Xt, Lg_eff, w, fmask, bsub, z, tau,
                                       lam_, y, loss, block_epochs)
         k += 1
-        gap = float(reduced_gap(bsub, z))
+        gap_t = reduced_gap(bsub, z)
+        gap = host_sync(float, gap_t, site="sync.block")
     delta = (bsub - bsub0) * fmask
     return beta.index_add(0, take, delta), k, gap
 
@@ -487,10 +546,10 @@ def _gather_static(problem: SGLProblem, group_active: np.ndarray):
     take = np.concatenate([idx, np.zeros(pad, np.int64)])
     gmask = np.concatenate([np.ones(len(idx)), np.zeros(pad)])
     dev = problem.device
-    take_t = torch.as_tensor(take, dtype=torch.int64).to(dev)
+    take_t = to_device(take, dev, torch.int64)
     Xt = problem.X.index_select(1, take_t).permute(1, 0, 2).contiguous()
     return (idx, take_t, Xt, problem.Lg[take_t], problem.w[take_t],
-            torch.as_tensor(gmask, dtype=problem.X.dtype).to(dev))
+            to_device(gmask, dev, problem.X.dtype))
 
 
 # ----------------------------------------------------------------------------

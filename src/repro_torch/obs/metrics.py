@@ -8,7 +8,7 @@ audits the declaration table.
 
 Naming convention (enforced): lowercase dotted ``layer.noun`` with an
 optional ``_<unit>`` suffix — ``kernels.corr_launches``,
-``solver.gathers``, ``kernels.measured_s``.  At least one dot, so every
+``solver.gathers``, ``serve.digest_s``.  At least one dot, so every
 metric carries its owning layer.
 
 Kinds

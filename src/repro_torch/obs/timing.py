@@ -62,19 +62,12 @@ from ..kernels.screening_scores import (
 )
 from ..kernels.sgl_prox import sgl_prox_launch_spec, sgl_prox_work
 from ..launch.roofline import achieved_vs_peak
-from . import metrics as obs_metrics
 from .export import device_label
 
 __all__ = ["CASES", "TimingCase", "check_cases", "graph_time",
            "measure_kernels", "measure_one"]
 
 U = 2.0 ** -53            # unit roundoff of f64
-
-_M_MEASURED = obs_metrics.REGISTRY.histogram(
-    "kernels.measured_s",
-    help="Median measured kernel time per timing-harness case (CUDA events "
-         "on the card, host clock on the CPU)")
-
 
 def _outputs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
@@ -398,7 +391,6 @@ def measure_kernels(scale: str = "smoke", warmup: int = 2, repeat: int = 5,
             continue
         fn, args, flops, bts, spec = case.build(scale, dev)
         t = measure_one(fn, args, warmup=warmup, repeat=repeat, device=dev)
-        _M_MEASURED.observe(t["median_s"])
         on_card = dev.type == "cuda"
         g = graph_time(fn, args, repeat, dev) if on_card else None
         out[case.name] = {

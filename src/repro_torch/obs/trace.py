@@ -8,6 +8,10 @@ in :data:`SPAN_SITES`, audited by OB002)::
         round              one certified GAP round (full or compact)
         epoch_block        one BCD epoch-block dispatch
           kernel_launch    one dispatch on the "cuda" backend (host side)
+            sync.block     the host blocked on a block's reduced gap
+        sync.round         any other blocking transfer of a path (a read of
+                           a round's gap or masks, a mask or index upload)
+        gather             a gather-cache miss building a compact buffer
     serve.request            one coalesced group through _serve_group
       serve.coalesce         queue drain + value-digest grouping window
       serve.store            certificate-store lookup / publish
@@ -35,7 +39,14 @@ Contract
   synchronises the device (that would change what the path measures); a
   span includes device time only where the solver code inside it waits
   for the device itself (a read-back of a gap or a mask).  Kernel device
-  time comes from :mod:`repro_torch.obs.timing` (CUDA events).
+  time comes from :mod:`repro_torch.obs.timing` (CUDA events).  The
+  ``sync.*`` spans enclose exactly the solver's blocking transfers, so
+  ``kernel_launch`` less its ``sync.block`` children is the host enqueueing.
+* **On the profiler's clock.**  While tracing is enabled each span also
+  opens a ``torch.profiler.record_function`` range named ``span.<name>``,
+  so a run under ``torch.profiler`` shows the program's spans beside the
+  device's activity.  This module imports torch only when tracing is
+  switched on.
 """
 from __future__ import annotations
 
@@ -57,6 +68,13 @@ SPAN_SITES: Dict[str, str] = {
     "epoch_block": "core/session.py:solve, _solve_batch_bcd — one BCD "
                    "epoch-block dispatch",
     "kernel_launch": "core/session.py — dispatch on the cuda backend",
+    "sync.block": "core/solver.py:_inner_rounds, _inner_rounds_loss; "
+                  "core/session.py:_solve_batch_bcd — the host blocked on "
+                  "the per-block reduced gap",
+    "sync.round": "core/solver.py:host_sync — every other blocking "
+                  "transfer of a path (core/session.py, _gather_static)",
+    "gather": "core/solver.py:SolveCaches.gather, gather_xt_rows — a miss "
+              "that builds a compact buffer",
     "serve.request": "serve/server.py:_serve_group — one coalesced group",
     "serve.coalesce": "serve/server.py:_worker_loop — drain+group window",
     "serve.store": "serve/server.py — certificate store lookup/publish",
@@ -69,7 +87,7 @@ class Span:
     """A recorded span.  Only ever allocated while tracing is enabled."""
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "t_start",
-                 "t_end", "attrs", "sampled", "_tracer")
+                 "t_end", "attrs", "sampled", "_tracer", "_range")
 
     _allocated = 0  # class-level tally; GIL-atomic += is fine for the assert
 
@@ -84,6 +102,7 @@ class Span:
         self.t_end = 0.0
         self.attrs: Optional[dict] = None
         self.sampled = False
+        self._range = None
 
     @classmethod
     def allocated(cls) -> int:
@@ -126,6 +145,13 @@ class _NoopSpan:
 NOOP = _NoopSpan()
 
 
+def _profiler_range():
+    """``torch.profiler.record_function``, imported when tracing is switched
+    on (this module stays importable without torch)."""
+    from torch.profiler import record_function
+    return record_function
+
+
 class Tracer:
     def __init__(self, clock: Callable[[], float] = time.perf_counter,
                  buffer: int = 4096, sample_every: int = 1):
@@ -139,6 +165,7 @@ class Tracer:
         self._root_seq = 0
         self._span_seq = 0
         self._open = 0
+        self._range_cls = None
 
     # -- lifecycle -------------------------------------------------------
     def configure(self, enabled: Optional[bool] = None,
@@ -147,6 +174,8 @@ class Tracer:
                   clock: Optional[Callable[[], float]] = None) -> None:
         with self._lock:
             if enabled is not None:
+                if enabled and self._range_cls is None:
+                    self._range_cls = _profiler_range()
                 self._enabled = bool(enabled)
             if sample_every is not None:
                 self._sample_every = max(1, int(sample_every))
@@ -196,10 +225,16 @@ class Tracer:
                 sp.trace_id = self._root_seq
                 sp.sampled = (self._root_seq - 1) % self._sample_every == 0
         st.append(sp)
+        if self._range_cls is not None:
+            sp._range = self._range_cls(f"span.{sp.name}")
+            sp._range.__enter__()
         sp.t_start = self._clock()
 
     def _exit(self, sp: Span) -> None:
         sp.t_end = self._clock()
+        if sp._range is not None:
+            sp._range.__exit__(None, None, None)
+            sp._range = None
         st = self._stack()
         if st and st[-1] is sp:
             st.pop()

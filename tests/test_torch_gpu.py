@@ -555,6 +555,114 @@ def test_kernel_path_matches_plain_path(hopper):
     np.testing.assert_array_equal(kr.feat_active[1:], pr.feat_active[1:])
 
 
+def _sync_stacks(fn):
+    """``fn()`` under ``set_sync_debug_mode("warn")``: its result and the
+    Python stack of each synchronising call it made."""
+    import traceback
+    import warnings
+
+    stacks = []
+    inside = []
+    shown = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # Only fn's own calls: the first switch to "warn" in a process can
+        # itself report one synchronising call.
+        if "synchronizing" in str(message):
+            if inside:
+                stacks.append(traceback.extract_stack()[:-1])
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside.append(True)
+            out = fn()
+        finally:
+            inside.clear()
+            torch.cuda.set_sync_debug_mode("default")
+    return out, stacks
+
+
+@pytest.mark.parametrize("rule", ["gap", "none"])
+@pytest.mark.parametrize("traced", [False, True])
+def test_n_syncs_counts_the_cards_synchronising_calls(hopper, rule, traced):
+    """Every synchronising call of a path on the card (the warnings of
+    ``set_sync_debug_mode("warn")``) is one of the path's counted blocking
+    transfers (``solver.host_sync``), ``PathResult.n_syncs`` of them, with
+    the tracer off and on; the path batches lambdas and compacts its
+    buffers."""
+    X, y, _, sizes = make_climate_like(n=120, n_lon=6, n_lat=4)
+    prob = make_problem(X, y, sizes, tau=0.3)
+    session = SGLSession(prob, SolverConfig(tol=1e-8, rule=rule))
+    grid = np.geomspace(session.lam_max, 0.1 * session.lam_max, 12)
+    session.solve_path(grid)
+    otrace.configure(enabled=traced)
+    try:
+        res, stacks = _sync_stacks(lambda: session.solve_path(grid))
+    finally:
+        otrace.configure(enabled=False)
+        otrace.TRACER.reset()
+    stray = ["\n".join(f"{f.filename}:{f.lineno}:{f.name}" for f in st[-8:])
+             for st in stacks if not any(f.name == "host_sync" for f in st)]
+    assert not stray, "\n\n".join(stray)
+    assert res.n_syncs == len(stacks) > 0
+    assert res.group_steps > 0 and (rule == "none") == (res.n_gathers == 0)
+
+
+def test_spans_are_ranges_on_the_device_traces_clock(hopper, tmp_path):
+    """With the tracer on under torch.profiler, and no benchmark code, each
+    span is a ``span.<name>`` range of the trace, as many as the tracer
+    counted, and every BCD kernel was launched inside a
+    ``span.kernel_launch`` range and ran after its launch, on one clock."""
+    import bisect
+    import collections
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    X, y, _, sizes = make_climate_like(n=120, n_lon=6, n_lat=4)
+    prob = make_problem(X, y, sizes, tau=0.3)
+    session = SGLSession(prob, SolverConfig(tol=1e-8))
+    grid = np.geomspace(session.lam_max, 0.1 * session.lam_max, 12)
+    session.solve_path(grid)
+    otrace.configure(enabled=True)
+    otrace.TRACER.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            session.solve_path(grid)
+            torch.cuda.synchronize()
+        counts = otrace.TRACER.counts()
+    finally:
+        otrace.configure(enabled=False)
+        otrace.TRACER.reset()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"].startswith("span.")]
+    assert collections.Counter(e["name"][5:] for e in ranges) == counts
+    launches = sorted((e["ts"], e["ts"] + e["dur"]) for e in ranges
+                      if e["name"] == "span.kernel_launch")
+    starts = [a for a, _ in launches]
+    issued = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    bcd = [e for e in events if e.get("cat") == "kernel"
+           and "bcd" in e["name"]]
+    assert bcd
+    for k in bcd:
+        t = issued[k["args"]["correlation"]]
+        i = bisect.bisect_right(starts, t) - 1
+        assert i >= 0 and launches[i][1] >= t and k["ts"] >= t
+
+
 def _masks_equal_past_lambda_max(kr, pr):
     np.testing.assert_array_equal(kr.group_active[1:], pr.group_active[1:])
     np.testing.assert_array_equal(kr.feat_active[1:], pr.feat_active[1:])

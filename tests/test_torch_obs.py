@@ -271,14 +271,19 @@ def test_export_jsonl(tmp_path):
     assert rec["name"] == "path" and rec["attrs"] == {"T": 4}
 
 
+#: The port's sites that the reference has no counterpart of: the host's
+#: blocking transfers and the gather-cache misses.
+HOST_SITES = {"sync.block", "sync.round", "gather"}
+
+
 def test_span_sites_are_the_solver_sites():
     """The solver's five sites and the serving layer's five, as in the
-    reference."""
+    reference, and the port's three host-turnaround sites."""
     assert set(ot.SPAN_SITES) == {
         "path", "lambda", "round", "epoch_block", "kernel_launch",
         "serve.request", "serve.coalesce", "serve.store", "serve.cache",
-        "serve.warm_eval"}
-    assert set(ot.SPAN_SITES) == set(j_trace.SPAN_SITES)
+        "serve.warm_eval"} | HOST_SITES
+    assert set(ot.SPAN_SITES) == set(j_trace.SPAN_SITES) | HOST_SITES
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +326,11 @@ def test_traced_path_bit_identical_and_untraced_allocates_no_span(backend):
     assert not ot.TRACER.enabled
     before = ot.Span.allocated()
     off = SGLSession(tp, cfg, device="cpu").solve_path(T=5, delta=1.5)
+    # A batched path too: every sync, gather and batch site ran untraced.
+    batched = SGLSession(tp, cfg, device="cpu").solve_path(T=8, delta=0.3)
     assert ot.Span.allocated() == before
+    assert off.n_syncs > 0 and off.n_gathers > 0
+    assert batched.batched_lambdas > 0 and batched.n_syncs > 0
     on, counts = _traced(lambda: SGLSession(tp, cfg, device="cpu").solve_path(
         T=5, delta=1.5), ot.TRACER)
     np.testing.assert_array_equal(on.betas, off.betas)
@@ -346,6 +355,122 @@ def test_span_counts_match_reference_session():
     np.testing.assert_array_equal(tres.epochs, jres.epochs)
     for site in ("path", "lambda", "round", "epoch_block"):
         assert tcounts.get(site, 0) == jcounts.get(site, 0) > 0, site
+
+
+def _traced_records(fn):
+    """``fn()`` traced with every span recorded: (result, counts, records,
+    the name of each recorded span's parent)."""
+    ot.configure(enabled=True, sample_every=1, buffer=1_000_000)
+    ot.TRACER.reset()
+    try:
+        out = fn()
+        recs = ot.TRACER.records()
+        counts = ot.TRACER.counts()
+    finally:
+        ot.TRACER.reset()
+        ot.configure(enabled=False, buffer=4096)
+    names = {r["span"]: r["name"] for r in recs}
+    parents = [(r["name"], names.get(r["parent"])) for r in recs]
+    return out, counts, recs, parents
+
+
+def _batched_session(backend="cuda", rule="gap"):
+    """A session whose T = 8, delta = 0.3 path batches lambdas."""
+    _, tp = _problems()
+    return SGLSession(tp, SolverConfig(tol=TOL, rule=rule,
+                                       screen_backend=backend,
+                                       solver_backend=backend), device="cpu")
+
+
+def test_host_sites_fire_and_nest():
+    """``sync.block`` inside ``kernel_launch`` inside ``epoch_block`` in
+    ``solve``; under ``lambda`` in a batched run; ``gather`` under
+    ``lambda``."""
+    session = _batched_session()
+    res, counts, recs, parents = _traced_records(
+        lambda: session.solve_path(T=8, delta=0.3))
+    assert res.batched_lambdas > 0
+    assert all(counts[s] > 0 for s in HOST_SITES)
+    kinds = {pair for pair in parents if pair[0] in HOST_SITES}
+    assert ("sync.block", "kernel_launch") in kinds
+    assert ("sync.block", "lambda") in kinds
+    assert ("gather", "lambda") in kinds
+    assert {p for n, p in parents if n == "sync.block"} == {"kernel_launch",
+                                                            "lambda"}
+    by_id = {r["span"]: r for r in recs}
+    launches = [by_id[r["parent"]] for r in recs if r["name"] == "sync.block"
+                and by_id[r["parent"]]["name"] == "kernel_launch"]
+    assert {by_id[r["parent"]]["name"] for r in launches} == {"epoch_block"}
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("rule", ["gap", "none"])
+def test_n_syncs_counts_the_sync_spans(backend, rule):
+    session = _batched_session(backend, rule)
+    res, counts, _, _ = _traced_records(
+        lambda: session.solve_path(T=8, delta=0.3))
+    assert res.n_syncs == counts["sync.block"] + counts["sync.round"] > 0
+
+
+def test_group_steps_without_screening_are_groups_times_epochs():
+    session = _batched_session(rule="none")
+    res = session.solve_path(T=8, delta=0.3)
+    assert res.group_steps == session.problem.G * int(res.epochs.sum()) > 0
+
+
+@pytest.mark.parametrize("rule", ["gap", "none"])
+def test_path_counters_repeat_on_one_session(rule):
+    """Paths run back to back on one session count their own work: the
+    same gathers, syncs and group steps (lambda_max read beforehand; the
+    second and third paths, since the unscreened first path leaves its
+    one full buffer gathered)."""
+    session = _batched_session(rule=rule)
+    _ = session.lam_max
+    first = session.solve_path(T=8, delta=0.3)
+    runs = [session.solve_path(T=8, delta=0.3) for _ in range(2)]
+    if rule == "gap":
+        runs.insert(0, first)
+    else:
+        assert first.n_gathers == 1 and runs[0].n_gathers == 0
+    for r in runs[1:]:
+        assert (r.n_gathers, r.n_syncs, r.group_steps) == (
+            runs[0].n_gathers, runs[0].n_syncs, runs[0].group_steps)
+    assert runs[0].n_syncs > 0 and runs[0].group_steps > 0
+
+
+def test_spans_are_profiler_ranges():
+    """Traced, each span is a ``span.<name>`` range of a torch.profiler
+    trace, as many of each as the tracer counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    session = _batched_session()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, counts, _, _ = _traced_records(
+            lambda: session.solve_path(T=8, delta=0.3))
+    ranges = {}
+    for evt in prof.events():
+        if evt.name.startswith("span."):
+            ranges[evt.name[5:]] = ranges.get(evt.name[5:], 0) + 1
+    assert ranges == counts
+    assert HOST_SITES <= set(ranges)
+
+
+def test_trace_module_imports_torch_only_when_enabled():
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('t', {ot.__file__!r})\n"
+        "t = importlib.util.module_from_spec(spec); spec.loader.exec_module(t)\n"
+        "assert 'torch' not in sys.modules\n"
+        "with t.span('path'): pass\n"
+        "assert 'torch' not in sys.modules\n"
+        "t.configure(enabled=True)\n"
+        "assert 'torch' in sys.modules\n"
+        "with t.span('path'): pass\n"
+        "assert t.TRACER.counts() == {'path': 1}\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
 def test_solver_gathers_counter_tracks_path_gathers():
