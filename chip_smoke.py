@@ -123,8 +123,11 @@ T_START = time.perf_counter()
 # Path configurations.  ``solve``: how many leading points of the T-point
 # grid the path solves; ``plain``: how many of those are solved again with
 # the plain PyTorch backends on the card; ``kernels``: the kernels the path
-# must launch, ``idle``: those it must not (PERF.md says why each is cut).
-LSQ_KERNELS = ("corr", "dual_norm", "bcd_epoch")
+# must launch (a tuple of names: one of them), ``idle``: those it must not
+# (PERF.md says why each is cut).  A least-squares path's BCD launches take
+# the cluster kernel or, for one lambda over a buffer of at least
+# WIDE_MIN_GROUPS slots, the wide one.
+LSQ_KERNELS = ("corr", "dual_norm", ("bcd_epoch", "bcd_wide"))
 CLIMATE_LON, CLIMATE_LAT = 144, 73    # the NCEP/NCAR grid, 2.5 degrees
 CLIMATE = dict(name="climate", tau=0.4, tol=1e-6, T=20, delta=2.5,
                solve=20, plain=8, kernels=LSQ_KERNELS,
@@ -132,7 +135,7 @@ CLIMATE = dict(name="climate", tau=0.4, tol=1e-6, T=20, delta=2.5,
 CLIMATE_LOGISTIC = dict(name="climate-logistic", loss="logistic", tau=0.4,
                         tol=1e-6, T=20, delta=2.5, solve=14, plain=3,
                         kernels=("corr", "dual_norm", "bcd_epoch_logistic"),
-                        idle=("bcd_epoch", "screening_scores"))
+                        idle=("bcd_epoch", "bcd_wide", "screening_scores"))
 SYNTHETIC = dict(name="synthetic", tau=0.2, tol=1e-8, T=40, delta=3.0,
                  solve=28, plain=12, kernels=LSQ_KERNELS,
                  idle=("bcd_epoch_logistic", "screening_scores"))
@@ -146,9 +149,12 @@ SYNTHETIC_RULES = dict(name="synthetic-rules", tau=0.2, tol=1e-8, T=40,
 # screening, through examples/climate_path_torch.py's run() on the climate
 # phase's full-width problem, with the example's config (tol 1e-6,
 # max_epochs 2,000, the T = 20 grid over 2.5 decades).  ``points``: the
-# grid's leading points both rules solve (None: all 20).
+# grid's leading points both rules solve (None: all 20); ``kernels``: per
+# rule, the kernels its path must launch (without screening every epoch is
+# a full-width sweep of one lambda, the wide BCD kernel's).
 PAPER = dict(name="paper", points=None,
-             kernels=LSQ_KERNELS,
+             kernels={"gap": LSQ_KERNELS,
+                      "none": ("corr", "dual_norm", "bcd_wide")},
              idle=("bcd_epoch_logistic", "screening_scores", "sgl_prox"))
 # The serving phases: the climate grid's leading points (the climate phase's
 # plain rerun holds the served path's masks), the synthetic grid's leading
@@ -167,7 +173,8 @@ ELASTIC = dict(name="elastic", tau=0.2, tol=1e-8, T=40, delta=3.0, solve=4,
 # NCCL rank, on the climate design at full width (its fista step) and on
 # the synthetic problem (its fista_batch step).
 MESH_KERNELS = ("sgl_prox", "dual_norm")
-MESH_IDLE = ("corr", "bcd_epoch", "bcd_epoch_logistic", "screening_scores")
+MESH_IDLE = ("corr", "bcd_epoch", "bcd_epoch_logistic", "bcd_wide",
+             "screening_scores")
 # At full width FISTA with the global Lipschitz constant needs up to 33,860
 # steps per point to reach tol (PERF.md section 6), above the default cap of
 # 10,000.
@@ -187,7 +194,8 @@ LM_TRAIN = dict(steps=100, batch=16, seq=64, lr=1e-3, sgl_lam=3e-4,
 # the CPU).
 LM_SPARSE_LAM = 1.5
 LM_KERNELS = ("sgl_prox",)
-LM_IDLE = ("corr", "bcd_epoch", "bcd_epoch_logistic", "screening_scores",
+LM_IDLE = ("corr", "bcd_epoch", "bcd_epoch_logistic", "bcd_wide",
+           "screening_scores",
            "dual_norm")
 LM_PROX_REL = 2.4e-7      # kernel against plain, f32 (two f32 roundings)
 # The sparse run's prox, every call against the plain version: rows just
@@ -332,7 +340,8 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
     """One BCD epoch kernel (``loss`` "lsq": residual carry, "logistic":
     predictor carry with labels ``y``) against its plain version, and
     against itself: a second launch on the same inputs must give the same
-    bits.  Prints the launch geometry (cluster, slices, ring); returns
+    bits.  Prints the launch geometry (cluster, slices, ring; or the wide
+    kernel's grid and ring where ``bcd_epoch_cuda`` takes it); returns
     (max_abs_err, ms, loop_ms, plain_ms, bound_ms, bound_by)."""
     import torch
     from repro_torch.kernels import ref
@@ -343,11 +352,16 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
         bcd_epoch_max_active_clusters,
         bcd_epoch_work,
     )
+    from repro_torch.kernels.bcd_wide import (
+        bcd_wide_geometry,
+        bcd_wide_selected,
+    )
     from repro_torch.obs.timing import close_epochs
 
     name = "bcd_epoch" if loss == "lsq" else "bcd_epoch_logistic"
     Gb, n, ng = Xg.shape
     B = beta.shape[0]
+    wide = bcd_wide_selected(B, Gb, n, ng, loss)
 
     def kernel():
         return bcd_epoch_cuda(Xg, Lg, w, fmask, lam_b, tau, beta, carry, E,
@@ -374,14 +388,26 @@ def check_bcd(label, loss, Xg, Lg, w, fmask, lam_b, tau, beta, carry, y, E,
     live = int((Lg > 0).sum())
     flops, nbytes = bcd_epoch_work(B, Gb, n, ng, E, loss, live)
     b_ms, b_by = bound_ms(nbytes, flops)
-    geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
-    spec = bcd_epoch_launch_spec(B, Gb, n, ng, loss)[0]
+    if wide:
+        wgeo = bcd_wide_geometry(Gb, n, ng,
+                                 torch.cuda.get_device_properties(
+                                     Xg.device).multi_processor_count)
+        name = "bcd_wide"
+        launch = (f"grid={wgeo.grid} ring_stages={wgeo.stages} "
+                  f"stage_bytes={wgeo.stage_bytes} movers_per_pass="
+                  f"{wgeo.cap} smem_bytes={wgeo.smem_bytes}")
+    else:
+        geo = bcd_epoch_geometry(B, Gb, n, ng, loss)
+        spec = bcd_epoch_launch_spec(B, Gb, n, ng, loss)[0]
+        launch = (f"beta_in_smem={int(geo.beta_in_smem)} grid={spec.grid[0]} "
+                  f"cluster={geo.cluster} "
+                  f"slices={geo.slices[0]}..{geo.slices[-1]} "
+                  f"ring_stages={geo.stages} stage_doubles={geo.stage} "
+                  f"kmax={geo.kmax} smem_bytes={geo.smem_bytes} "
+                  f"max_active_clusters="
+                  f"{bcd_epoch_max_active_clusters(B, Gb, n, ng, loss)}")
     log(f"kernel {name} ({label}): B={B} Gb={Gb} live={live} n={n} ng={ng} "
-        f"E={E} beta_in_smem={int(geo.beta_in_smem)} grid={spec.grid[0]} "
-        f"cluster={geo.cluster} slices={geo.slices[0]}..{geo.slices[-1]} "
-        f"ring_stages={geo.stages} stage_doubles={geo.stage} kmax={geo.kmax} "
-        f"smem_bytes={geo.smem_bytes} max_active_clusters="
-        f"{bcd_epoch_max_active_clusters(B, Gb, n, ng, loss)} "
+        f"E={E} {launch} "
         f"max_abs_err={err:.3e} "
         f"tol=1e-10 relative to the largest entry ok={ok} "
         f"bit_identical_relaunch={same} "
@@ -514,9 +540,19 @@ def check_kernels(climate_problem, lam_max: float, y01, lam_max_logistic):
                             device=dev)
         carry1 = (prob.y[None].clone() if loss == "lsq"
                   else torch.zeros((1, n), dtype=Xg.dtype, device=dev))
-        err_full = check_bcd(
+        full = check_bcd(
             "full width", loss, X_full, Lg_full, w_full, fmask_full, lam1,
-            prob.tau, beta1, carry1, y_arg, E, 3)[0]
+            prob.tau, beta1, carry1, y_arg, E, 3)
+        err_full = full[0]
+        if loss == "lsq":
+            # One lambda at full width is the wide kernel's launch.
+            records["bcd_wide"] = dict(
+                name="bcd_wide", route="cuda",
+                source="src/repro_torch/kernels/csrc/bcd_wide.cu",
+                replaces=replaces, max_abs_err=err_full, ms=full[1],
+                loop_ms=full[2], plain_ms=full[3], bound_ms=full[4],
+                bound_by=full[5], library_ms=None)
+            err_full = 0.0
         records[name] = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1049,11 +1085,13 @@ def check_synthetic_bcd(problem, records) -> None:
     for one lambda (the path's commonest launch) and for the batched B = 4,
     10 epochs from a warm beta (10 plain epochs at lambdas 20% above), so
     that groups move.  Each against its plain version and a second launch
-    (check_bcd); their errors join the kernels' records."""
+    (check_bcd); their errors join the records of the kernels the launches
+    take (one lambda of least squares: the wide kernel)."""
     import numpy as np
     import torch
     from repro_torch.core import sgl
     from repro_torch.kernels import ref
+    from repro_torch.kernels.bcd_wide import bcd_wide_selected
     from repro_torch.losses import resolve_loss
 
     prob = problem
@@ -1088,7 +1126,8 @@ def check_synthetic_bcd(problem, records) -> None:
             err = check_bcd(f"synthetic B={B} Gb={Gb}, warm", loss, Xg, Lg,
                             w, fmask, lam_b, prob.tau, beta.contiguous(),
                             carry.contiguous(), y_arg, E, 10)[0]
-            rec = records[name]
+            wide = bcd_wide_selected(B, Gb, prob.n, prob.ng, loss)
+            rec = records["bcd_wide" if wide else name]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
 
@@ -1172,6 +1211,19 @@ def compare_masks(label, problem, res, pres, m, margins_at):
     return flips
 
 
+def never_launched(counts, kernels):
+    """The entries of ``kernels`` (a kernel's name, or a tuple of names of
+    which one must launch) that ``counts`` shows no launch of."""
+    return [k for k in kernels
+            if sum(counts[n] for n in ((k,) if isinstance(k, str) else k))
+            <= 0]
+
+
+def kernel_names(kernels):
+    """Every kernel name in ``kernels`` (tuples of alternatives flattened)."""
+    return [n for k in kernels for n in ((k,) if isinstance(k, str) else k)]
+
+
 def drive(label, session, lambdas, kernels=(), idle=()):
     """Solve ``lambdas`` through the session's path with every launch count
     zeroed just before and read just after; checks the outputs and that
@@ -1210,9 +1262,8 @@ def drive(label, session, lambdas, kernels=(), idle=()):
         raise AssertionError(f"{label}: non-finite path output")
     if res.betas.shape != (len(lambdas), problem.G, problem.ng):
         raise AssertionError(f"{label}: betas of shape {res.betas.shape}")
-    for name in kernels:
-        if counts[name] <= 0:
-            raise AssertionError(f"{label}: kernel {name} never launched")
+    for name in never_launched(counts, kernels):
+        raise AssertionError(f"{label}: kernel {name} never launched")
     for name in idle:
         if counts[name] != 0:
             raise AssertionError(f"{label}: kernel {name} launched "
@@ -1390,10 +1441,9 @@ def run_paper(config, problem, n_lon: int, n_lat: int):
             raise AssertionError(f"{label} {rule}: points {over.tolist()} "
                                  f"stopped before max_epochs with gaps "
                                  f"{gaps[over].tolist()} above tol {tol}")
-        for name in config["kernels"]:
-            if r["launches"][name] <= 0:
-                raise AssertionError(f"{label} {rule}: kernel {name} never "
-                                     f"launched")
+        for name in never_launched(r["launches"], config["kernels"][rule]):
+            raise AssertionError(f"{label} {rule}: kernel {name} never "
+                                 f"launched")
         if r["n_transpose_copies"] != 0:
             raise AssertionError(f"{label} {rule}: transposed copies")
         record[rule] = dict(
@@ -1401,7 +1451,8 @@ def run_paper(config, problem, n_lon: int, n_lat: int):
             epochs_per_lambda=epochs.tolist(), rounds=r["n_rounds"],
             gathers=r["n_gathers"],
             seq_screened=int(np.sum(r["seq_screened"])),
-            launches={k: r["launches"][k] for k in config["kernels"]},
+            launches={k: r["launches"][k]
+                      for k in kernel_names(config["kernels"][rule])},
             stopped_at_max_epochs=stopped.tolist(),
             max_gap=float(gaps.max()),
             peak_gib=(r["peak_bytes"] / 2**30
@@ -1423,7 +1474,8 @@ def run_paper(config, problem, n_lon: int, n_lat: int):
                         if sum(gap["epochs"]) else None),
         max_abs_dP_converged=float(dP[both].max()) if both.any() else None,
         map_active=out["map"]["active"], map_points=n_lon * n_lat,
-        launches={k: counts[k] for k in config["kernels"]},
+        launches={k: counts[k] for k in sorted(set(kernel_names(
+            [k for ks in config["kernels"].values() for k in ks])))},
         seconds=seconds)
     phase_line(label, record)
     for name in config["idle"]:
@@ -1651,10 +1703,8 @@ def run_serve_climate(problem, lambdas, pres):
             and dec_e["lam_src"] == float(grid_e[0])):
         raise AssertionError("serve climate: e's warm start from a stored "
                              f"beta of another y was not admitted: {dec_e}")
-    for name in LSQ_KERNELS:
-        if counts[name] <= 0:
-            raise AssertionError(f"serve climate: kernel {name} never "
-                                 "launched")
+    for name in never_launched(counts, LSQ_KERNELS):
+        raise AssertionError(f"serve climate: kernel {name} never launched")
     for name in CLIMATE["idle"]:
         if counts[name] != 0:
             raise AssertionError(f"serve climate: kernel {name} launched")
@@ -1875,10 +1925,9 @@ def run_serve_synthetic(problem, lambdas):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _util.launch_counts()
-    for name in LSQ_KERNELS:
-        if counts[name] <= 0:
-            raise AssertionError(f"serve synthetic: kernel {name} never "
-                                 "launched")
+    for name in never_launched(counts, LSQ_KERNELS):
+        raise AssertionError(f"serve synthetic: kernel {name} never "
+                             "launched")
     record = dict(
         problem="synthetic", points=len(grid), tol=tol, wall_s=wall,
         uninterrupted_s=t_ref, launches=counts,
@@ -2234,9 +2283,8 @@ def counted(label, fn, kernels, idle):
     out = fn()
     torch.cuda.synchronize()
     counts = _util.launch_counts()
-    for name in kernels:
-        if counts[name] <= 0:
-            raise AssertionError(f"{label}: kernel {name} never launched")
+    for name in never_launched(counts, kernels):
+        raise AssertionError(f"{label}: kernel {name} never launched")
     for name in idle:
         if counts[name] != 0:
             raise AssertionError(f"{label}: kernel {name} launched off its "
@@ -2895,7 +2943,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.core import make_problem, sgl
     from repro_torch.data import make_climate_like, make_synthetic
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _util
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.losses import resolve_loss
 
@@ -2941,7 +2989,7 @@ def main() -> int:
         log("mesh: NCCL_SOCKET_IFNAME was unset; set to 'lo'")
     run_analysis(climate, lam_max)
 
-    launches = {k: 0 for k in records}
+    launches = dict.fromkeys([*records, *_util.launch_counts()], 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -3008,7 +3056,7 @@ def main() -> int:
 
     kernels = [dict(records[k], launches=launches[k]) for k in
                ("corr", "dual_norm", "bcd_epoch", "screening_scores",
-                "bcd_epoch_logistic", "sgl_prox")]
+                "bcd_epoch_logistic", "sgl_prox", "bcd_wide")]
     log(f"whole script s={time.perf_counter() - T_START:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

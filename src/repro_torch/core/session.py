@@ -40,7 +40,10 @@ tensor back or synchronises the device.  The port adds ``sync.block``,
 ``sync.round`` (each blocking transfer, through
 :func:`~repro_torch.core.solver.host_sync`) and ``gather`` (a gather-cache
 miss); ``PathResult.n_syncs`` counts the transfers and ``group_steps`` the
-BCD group steps dispatched, with tracing off too.
+BCD group steps dispatched, with tracing off too; ``bcd_wide_epochs`` the
+epochs the wide BCD kernel ran and ``bcd_wide_redo_epochs`` those of them
+in which it redid part of its sweep (a count kept on the card, read once at
+the path's end).
 
 Fault protocol (:mod:`repro_torch.faults`), as in the reference: a
 certified round whose gap is not finite is discarded — its masks and dual
@@ -100,6 +103,7 @@ from .solver import (
     to_device,
     to_numpy,
 )
+from ..kernels import bcd_wide as kbcd_wide
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..faults.errors import KernelLaunchError, NumericsError
@@ -200,6 +204,10 @@ class PathResult(NamedTuple):
                                    #   path (solver.host_sync)
     group_steps: int = 0           # BCD group steps dispatched: live groups
                                    #   x lambdas x epochs, over launches
+    bcd_wide_epochs: int = 0       # epochs run by the wide BCD kernel
+                                   #   (its launches x n_epochs)
+    bcd_wide_redo_epochs: int = 0  # of those, epochs in which an entrant
+                                   #   made the kernel redo part of its sweep
     batched_lambdas: int = 0       # path points solved in a batched run
     rule_name: str = "gap"
     certificates_safe: bool = True
@@ -995,6 +1003,11 @@ class SGLSession:
         fused0 = self.fused_epoch_launches
         batched0 = self.batched_lambdas
         steps0 = self.group_steps
+        wide0 = kbcd_wide.EPOCHS.value
+        # The wide kernel's device count of epochs with a redo, as the path
+        # starts (a copy on the card, no transfer).
+        redo0 = (kbcd_wide.redo_count(self.device).clone()
+                 if self.device.type == "cuda" else None)
         copies0 = kops.transpose_copy_count()
 
         caches = self.caches if sequential else None
@@ -1142,6 +1155,13 @@ class SGLSession:
             g_act, f_act = g_act[:t], f_act[:t]
             seq_scr, dyn_scr = seq_scr[:t], dyn_scr[:t]
 
+        # The wide kernel's redo count: one read, on paths it ran in.
+        wide_epochs = kbcd_wide.EPOCHS.value - wide0
+        wide_redo = 0
+        if wide_epochs and redo0 is not None:
+            wide_redo = host_sync(
+                int, kbcd_wide.redo_count(self.device) - redo0)
+
         return PathResult(
             lambdas=lambdas, betas=betas, gaps=gaps, epochs=epochs,
             group_active_frac=gfrac, feat_active_frac=ffrac,
@@ -1158,6 +1178,8 @@ class SGLSession:
             n_fused_epoch_launches=self.fused_epoch_launches - fused0,
             n_syncs=sync_count() - syncs0,
             group_steps=self.group_steps - steps0,
+            bcd_wide_epochs=wide_epochs,
+            bcd_wide_redo_epochs=wide_redo,
             batched_lambdas=self.batched_lambdas - batched0,
             rule_name=rule.name,
             certificates_safe=rule.is_safe,

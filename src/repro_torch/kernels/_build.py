@@ -27,10 +27,11 @@ from typing import Dict
 __all__ = ["BUILD_DIR", "SOURCES", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# The six kernels, and ``noop``: an empty kernel that ``chip_smoke.py``
-# launches to read the card's floor for one launch.
+# The six kernels, the wide least-squares BCD kernel beside ``bcd_epoch``,
+# and ``noop``: an empty kernel that ``chip_smoke.py`` launches to read the
+# card's floor for one launch.
 SOURCES = ("corr", "dual_norm", "bcd_epoch", "screening_scores",
-           "bcd_epoch_logistic", "sgl_prox", "noop")
+           "bcd_epoch_logistic", "sgl_prox", "bcd_wide", "noop")
 # src/repro_torch/kernels/_build.py -> the checkout root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -14,7 +14,10 @@ the current carry (their partial gradients added over the cluster in rank
 order) up to the first one that changes.  :func:`bcd_epoch_geometry`
 chooses C, the slices, the ring and the shared memory from the shapes;
 :func:`bcd_epoch_cuda` checks the operands, launches and counts the launch
-of the kernel of the loss it is given.
+of the kernel of the loss it is given.  One lambda of least squares over a
+wide buffer (:func:`repro_torch.kernels.bcd_wide.bcd_wide_selected`, from
+the shapes alone) goes to the wide kernel instead, which spreads each
+epoch over every SM of the card (``csrc/bcd_wide.cu``).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from ._util import (
     raise_on_launch_error,
     stream_handle,
 )
+from .bcd_wide import bcd_wide_cuda, bcd_wide_selected
 
 __all__ = ["BcdGeometry", "LAUNCHES", "LOGISTIC_LAUNCHES", "bcd_epoch_cuda",
            "bcd_epoch_geometry", "bcd_epoch_launch_spec",
@@ -238,7 +242,9 @@ def bcd_epoch_cuda(Xt, Lg, w, fmask, lam_b, tau: float, beta, carry,
     ``lam_b (B,)``, ``tau`` a Python float.  ``carry (B, n)`` is the
     residual (``loss="lsq"``) or the linear predictor z
     (``loss="logistic"``, with the {0, 1} labels ``y (n,)``).  Returns new
-    ``(beta, carry)``; the inputs are left unchanged.
+    ``(beta, carry)``; the inputs are left unchanged.  Where
+    :func:`bcd_wide_selected` holds for the shapes, the wide kernel runs
+    instead.
     """
     if loss not in _KERNELS:
         raise ValueError(f"no BCD kernel for loss {loss!r}; choose from "
@@ -266,9 +272,12 @@ def bcd_epoch_cuda(Xt, Lg, w, fmask, lam_b, tau: float, beta, carry,
     if loss == "logistic":
         check_operand("y", y, (n,))
         labels = [y.data_ptr()]
-    carry_out = torch.empty_like(carry)
     if B == 0:
-        return torch.empty_like(beta), carry_out
+        return torch.empty_like(beta), torch.empty_like(carry)
+    if bcd_wide_selected(B, Gb, n, ng, loss):
+        return bcd_wide_cuda(Xt, Lg, w, fmask, lam_b, tau, beta, carry,
+                             n_epochs)
+    carry_out = torch.empty_like(carry)
     spec, _ = bcd_epoch_launch_spec(B, Gb, n, ng, loss)
     geo = spec.geometry
     # beta kept in global memory is updated in place in the output.

@@ -32,6 +32,7 @@ from . import _util, ref
 from ..analysis.registry import register_kernel_audit
 from ..obs.metrics import REGISTRY, ScopeView
 from .bcd_epoch import bcd_epoch_cuda, bcd_epoch_launch_spec, bcd_epoch_work
+from .bcd_wide import bcd_wide_launch_spec, bcd_wide_selected
 from .dual_norm import (
     dual_norm_cuda,
     dual_norm_launch_spec,
@@ -218,12 +219,16 @@ def bcd_epochs_fused(Xt, Lg, w, fmask, beta, carry, tau, lam_b,
     ``carry (B, n)``, ``lam_b (B,)`` one row per lambda; ``tau`` a float.
     ``carry`` is the least-squares residual, or with the {0, 1} labels
     ``y (n,)`` the logistic loss's linear predictor z = X beta (majorized
-    epochs).  Returns new ``(beta, carry)``."""
+    epochs).  On the card one lambda of least squares over a wide buffer
+    runs the wide kernel (``bcd_wide.bcd_wide_selected``).  Returns new
+    ``(beta, carry)``."""
     if n_epochs <= 0:
         return beta, carry
     if _on_meta(Xt):
         loss = "lsq" if y is None else "logistic"
         name = "bcd_epoch" if y is None else "bcd_epoch_logistic"
+        if bcd_wide_selected(beta.shape[0], *Xt.shape, loss):
+            name = "bcd_wide"
         work = bcd_epoch_work(beta.shape[0], *Xt.shape, n_epochs, loss)
         return _meta_launch(name, work, Xt, _F64, beta.shape, carry.shape)
     if _on_cpu(Xt):
@@ -318,7 +323,8 @@ def audit_scope():
 # model's FFN leaves ((F, D) = (128, 64) f32 rows, one launch a leaf); and
 # the Omega^D of launch.train --solver's f32 rounds (100 groups of 10); and
 # one rank's shard of the dry run's sgl-paper cell (16,384 groups of 8, f32;
-# the batched prox at B = 256).
+# the batched prox at B = 256); and the wide BCD kernel at the climate
+# paths' full-width B = 1 buffer and the synthetic path's.
 # ---------------------------------------------------------------------------
 
 _AUDITS = {
@@ -343,6 +349,8 @@ _AUDITS = {
         lambda: bcd_epoch_launch_spec(4, 16_384, 814, 7, "logistic")[0],
     "bcd_epoch/synthetic": lambda: bcd_epoch_launch_spec(1, 128, 100, 10)[0],
     "bcd_epoch/elastic": lambda: bcd_epoch_launch_spec(1, 128, 10_100, 10)[0],
+    "bcd_wide/climate": lambda: bcd_wide_launch_spec(16_384, 814, 7),
+    "bcd_wide/synthetic": lambda: bcd_wide_launch_spec(128, 100, 10),
     "dual_norm/climate": lambda: dual_norm_launch_spec(10_512, 7),
     "dual_norm/omega-climate-b8":
         lambda: sgl_dual_norm_launch_spec(16_384, 7, 8),

@@ -29,6 +29,7 @@ from repro_torch.kernels.bcd_epoch import (
     bcd_epoch_launch_spec,
 )
 from repro_torch.kernels.bcd_epoch_logistic import bcd_epoch_logistic_cuda
+from repro_torch.kernels.bcd_wide import bcd_wide_selected, redo_count
 from repro_torch.kernels.dual_norm import dual_norm_cuda, sgl_dual_norm_cuda
 from repro_torch.kernels.screening_scores import (
     corr_geometry,
@@ -524,6 +525,100 @@ def test_bcd_logistic_kernel_matches_plain(hopper, B, Gb, n, ng, frac,
     np.testing.assert_allclose(kz.cpu().numpy(), rz.cpu().numpy(), **TOL)
     assert torch.equal(kb[:, -2:], beta_t[:, -2:])
     assert not kb[:, 1].any()
+
+
+# The wide BCD kernel at the climate paths' full width: 16,384 slots, the
+# last 5,872 inert, n = 814, ng = 7, one lambda.  The design is random (its
+# groups are not the climate problem's), so where groups enter is set by
+# the lambdas below.
+WIDE_GB, WIDE_LIVE, WIDE_N, WIDE_NG = 16_384, 10_512, 814, 7
+
+
+@pytest.fixture(scope="module")
+def wide_case():
+    """The full-width buffer on the card and its three starts: ``still``
+    (beta = 0 above lambda_max: nothing moves), ``warm`` (about 20 nonzero
+    groups, from a cold epoch at the lambda that lets ~20 groups in) and
+    ``entrant`` (the warm beta with 8 more random groups, at 0.6 of that
+    lambda: groups enter and leave within an epoch)."""
+    if not _util.on_hopper():
+        pytest.skip("needs an sm_90 CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    f64 = dict(dtype=torch.float64, device=dev)
+    Xt = torch.randn((WIDE_GB, WIDE_N, WIDE_NG), generator=gen, **f64)
+    Xt /= WIDE_N ** 0.5
+    Xt[WIDE_LIVE:] = 0.0
+    Lg = (Xt * Xt).sum((1, 2))
+    w = torch.full((WIDE_GB,), WIDE_NG ** 0.5, **f64)
+    fm = torch.ones((1, WIDE_GB, WIDE_NG), **f64)
+    fm[0, 7, :3] = 0.0                           # a partly masked group
+    y = torch.randn((WIDE_N,), generator=gen, **f64)
+    tau = 0.4
+    corr = y @ Xt                                # X_g^T y, (Gb, ng)
+
+    def n_active(lam_):                          # cold groups that enter
+        st = torch.clamp(corr.abs() - tau * lam_, min=0.0)
+        return int((st.norm(dim=-1) > (1.0 - tau) * w * lam_).sum())
+
+    lo, hi = 0.0, float(corr.abs().max()) / tau
+    for _ in range(60):                          # ~20 groups enter
+        lam_w = 0.5 * (lo + hi)
+        lo, hi = (lam_w, hi) if n_active(lam_w) > 20 else (lo, lam_w)
+    score = corr.abs().amax(-1)
+    zero = torch.zeros((1, WIDE_GB, WIDE_NG), **f64)
+    lam = lambda v: torch.full((1,), v, **f64)  # noqa: E731
+    warm, _ = ref.bcd_epochs_ref(Xt, Lg, w, fm, zero, y[None], tau,
+                                 lam(lam_w), 1)
+    entrant = warm.clone()
+    on = torch.randperm(WIDE_LIVE, generator=torch.Generator().manual_seed(1))
+    entrant[0, on[:8].to(dev)] = 0.05            # these leave 0 again
+    starts = {
+        "still": (zero, lam(1.1 * float(score.max()) / tau)),
+        "warm": (warm, lam(lam_w)),
+        "entrant": (entrant, lam(0.6 * lam_w)),
+    }
+    resid = {k: y[None] - torch.einsum("gnk,gk->n", Xt, b[0])[None]
+             for k, (b, _) in starts.items()}
+    return dict(Xt=Xt, Lg=Lg, w=w, fm=fm, tau=tau, starts=starts,
+                resid=resid)
+
+
+@pytest.mark.parametrize("start", ["still", "warm", "entrant"])
+def test_wide_bcd_kernel_matches_plain_at_full_width(wide_case, start):
+    """bcd_epoch_cuda takes the wide kernel at this shape; 3 epochs agree
+    with the serial sweep within the BCD tolerance, inert slots keep their
+    bits, a second launch gives the same bits, and the redo count is 0
+    where nothing enters and above 0 where groups enter."""
+    c = wide_case
+    beta, lam_b = c["starts"][start]
+    resid = c["resid"][start]
+    args = (c["Xt"], c["Lg"], c["w"], c["fm"], lam_b, c["tau"], beta, resid,
+            3)
+    assert bcd_wide_selected(1, WIDE_GB, WIDE_N, WIDE_NG)
+    before = int(redo_count(beta.device))
+    with ops.audit_scope() as audit:
+        kb, kr = bcd_epoch_cuda(*args)
+        redo = int(redo_count(beta.device)) - before
+        again = bcd_epoch_cuda(*args)
+        torch.cuda.synchronize()
+    assert audit.launches["bcd_wide"] == 2 and audit.launches["bcd_epoch"] == 0
+    rb, rr = ref.bcd_epochs_ref(c["Xt"], c["Lg"], c["w"], c["fm"], beta,
+                                resid, c["tau"], lam_b, 3)
+    np.testing.assert_allclose(kb.cpu().numpy(), rb.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(kr.cpu().numpy(), rr.cpu().numpy(), **TOL)
+    assert torch.equal(kb[:, WIDE_LIVE:], beta[:, WIDE_LIVE:])
+    assert torch.equal(kb, again[0]) and torch.equal(kr, again[1])
+    moved = int((rb != beta).any(-1).sum())
+    if start == "still":
+        assert moved == 0 and redo == 0
+        assert torch.equal(kb, beta) and torch.equal(kr, resid)
+    elif start == "entrant":
+        entered = int(((beta == 0).all(-1) & (rb != 0).any(-1)).sum())
+        left = int(((beta != 0).any(-1) & (rb == 0).all(-1)).sum())
+        assert entered > 0 and left > 0 and 0 < redo <= 3
+    else:
+        assert 10 <= int((rb != 0).any(-1).sum()) <= 60
 
 
 def test_wrappers_check_dtype_and_contiguity(hopper):

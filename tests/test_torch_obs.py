@@ -167,12 +167,14 @@ def test_snapshot_diff_reset():
 
 
 def test_kernel_counters_are_declared_registry_counters():
-    """Every launch counter and the transposed-copy count are typed
-    counters of the port's REGISTRY; no retrace or demotion metric exists."""
+    """Every launch counter, the wide BCD kernel's epoch count and the
+    transposed-copy count are typed counters of the port's REGISTRY; no
+    retrace or demotion metric exists."""
     names = _util.launch_metric_names()
     assert set(names) == {"corr", "dual_norm", "bcd_epoch", "screening_scores",
-                          "bcd_epoch_logistic", "sgl_prox"}
+                          "bcd_epoch_logistic", "sgl_prox", "bcd_wide"}
     for metric in list(names.values()) + ["kernels.transpose_copies",
+                                          "kernels.bcd_wide_epochs",
                                           "solver.gathers"]:
         assert om.SCHEMA[metric].kind == "counter"
         assert isinstance(om.REGISTRY.get(metric), om.Counter)
