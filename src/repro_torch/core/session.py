@@ -43,7 +43,9 @@ miss); ``PathResult.n_syncs`` counts the transfers and ``group_steps`` the
 BCD group steps dispatched, with tracing off too; ``bcd_wide_epochs`` the
 epochs the wide BCD kernel ran and ``bcd_wide_redo_epochs`` those of them
 in which it redid part of its sweep (a count kept on the card, read once at
-the path's end).
+the path's end); ``bcd_cluster_wide_steps`` the group steps of launches of
+the wide kernel's shape (one lambda, ``WIDE_MIN_GROUPS`` slots or more) that
+ran the cluster kernel instead, as every logistic one does.
 
 Fault protocol (:mod:`repro_torch.faults`), as in the reference: a
 certified round whose gap is not finite is discarded — its masks and dual
@@ -208,6 +210,11 @@ class PathResult(NamedTuple):
                                    #   (its launches x n_epochs)
     bcd_wide_redo_epochs: int = 0  # of those, epochs in which an entrant
                                    #   made the kernel redo part of its sweep
+    bcd_cluster_wide_steps: int = 0  # of group_steps, those of one-lambda
+                                   #   launches of WIDE_MIN_GROUPS slots or
+                                   #   more that ran the cluster kernel
+                                   #   (bcd_wide_selected false: the
+                                   #   logistic loss)
     batched_lambdas: int = 0       # path points solved in a batched run
     rule_name: str = "gap"
     certificates_safe: bool = True
@@ -219,6 +226,14 @@ class PathResult(NamedTuple):
                                    #   tripped and the arrays hold only the
                                    #   prefix of lambdas actually solved,
                                    #   each with its honest certified gap
+
+
+def _cluster_wide(B: int, Xt: torch.Tensor, loss: str) -> bool:
+    """Whether a BCD launch of ``B`` lambdas over ``Xt`` (Gb, n, ng) has
+    the wide kernel's shape (one lambda, at least ``WIDE_MIN_GROUPS``
+    slots) but runs the cluster kernel, from the shapes alone."""
+    return (B == 1 and Xt.shape[0] >= kbcd_wide.WIDE_MIN_GROUPS
+            and not kbcd_wide.bcd_wide_selected(B, *Xt.shape, loss))
 
 
 def _batch_reduced_gaps(Xt, fmask_b, bsub, resid, w, y, tau: float, lam_b,
@@ -350,6 +365,9 @@ class SGLSession:
         # BCD group steps dispatched: live (gathered, unpadded) groups x
         # lambdas x epochs of each launch.
         self.group_steps = 0
+        # Of those, the steps of launches with the wide kernel's shape that
+        # ran the cluster kernel (:func:`_cluster_wide`).
+        self.bcd_cluster_wide_steps = 0
         # Fault accounting and the per-request budget: certified rounds
         # discarded for a non-finite gap, launches demoted to a plain version
         # (none: a failed launch raises), and the optional SolveBudget the
@@ -717,6 +735,9 @@ class SGLSession:
                 self.group_steps += len(idx) * check * int(k_done)
                 if fused:
                     self.fused_epoch_launches += int(k_done)
+                    if _cluster_wide(1, Xt, self.loss.name):
+                        self.bcd_cluster_wide_steps += (len(idx) * check
+                                                        * int(k_done))
             else:
                 if Xt_full is None:
                     Xt_full = problem.X.permute(1, 0, 2).contiguous()
@@ -755,9 +776,12 @@ class SGLSession:
                             beta, z_nc = bcd_epochs_loss(
                                 Xt_full, Lg, problem.w, fmask, beta, z_nc,
                                 tau, lam_, problem.y, self.loss, f_ce)
+                steps = int(group_active.sum()) * f_ce
                 if fused:
                     self.fused_epoch_launches += 1
-                self.group_steps += int(group_active.sum()) * f_ce
+                    if _cluster_wide(1, Xt_full, self.loss.name):
+                        self.bcd_cluster_wide_steps += steps
+                self.group_steps += steps
                 epochs_done += f_ce
 
             if self.budget is not None:
@@ -874,6 +898,8 @@ class SGLSession:
                     bsub, resid = kops.bcd_epochs_fused(
                         Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
                     self.fused_epoch_launches += 1
+                    if _cluster_wide(B, Xt, self.loss.name):
+                        self.bcd_cluster_wide_steps += len(idx) * B * block
                 else:
                     bsub, resid = kref.bcd_epochs_ref(
                         Xt, Lg_eff, w, fm_b, bsub, resid, tau, lam_b, block)
@@ -1003,6 +1029,7 @@ class SGLSession:
         fused0 = self.fused_epoch_launches
         batched0 = self.batched_lambdas
         steps0 = self.group_steps
+        cluster_wide0 = self.bcd_cluster_wide_steps
         wide0 = kbcd_wide.EPOCHS.value
         # The wide kernel's device count of epochs with a redo, as the path
         # starts (a copy on the card, no transfer).
@@ -1180,6 +1207,8 @@ class SGLSession:
             group_steps=self.group_steps - steps0,
             bcd_wide_epochs=wide_epochs,
             bcd_wide_redo_epochs=wide_redo,
+            bcd_cluster_wide_steps=(self.bcd_cluster_wide_steps
+                                    - cluster_wide0),
             batched_lambdas=self.batched_lambdas - batched0,
             rule_name=rule.name,
             certificates_safe=rule.is_safe,
